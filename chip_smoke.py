@@ -5,32 +5,51 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ (one nvcc per source, all
-started together), then:
+started together), then runs three cells at 1920x1080, each with its own
+path: scene3_cornell (16 spp, 2 bounces; 1 chunk, so the dense kernels),
+`diffuse` (4 spp, 3 bounces, scenes/config1_diffuse.json; 149 chunks, so
+the walk kernels) and `layered` (2 spp, 2 bounces, scenes/
+config4_layered.json; the walk kernels and the glossy-diffuse lobe).
 
-1. Kernel phase. For scene3_cornell and the `diffuse` README scene, each
-   dense kernel against its plain PyTorch version on the same inputs: the
-   1920x1080 primary wavefront, and the wavefront and NEE shadow rays of
-   every bounce of a real trace_paths frame (for `diffuse` a fixed
-   2^18-ray subsample, so the plain sweep stays short). Hit masks, ids and
-   blocked flags must agree; a tie at a knife edge may differ only where
-   both t agree within 1e-5 relative, on at most 1e-5 of the rays. Kernels
-   are timed with CUDA events after a warm-up, at the primary wavefront
-   beside the plain version and at each bounce of the frame.
-2. Path phase. `render` (method "auto") of scene3_cornell at 1920x1080,
-   16 spp, 2 bounces and of `diffuse` at 1920x1080, 4 spp, 3 bounces, each
-   with the launch counters zeroed just before and read just after; the
-   images must be finite and non-negative. Then each scene at 256x256,
-   2 spp through the kernels and again through the plain versions, and
-   Cornell at 48x48 on the GPU against the same render on the CPU, by the
-   engine-golden criterion (>99.5% of pixels within atol 1e-5 / rtol 1e-4,
-   mean within rtol 1e-3). Mrays/s use bench.py's accounting (pixels x
-   bounces x 2 / seconds).
+1. Kernel phase, on the wavefronts of a real trace_paths frame of each cell
+   (the 1080p primary wavefront, then each bounce's closest and NEE shadow
+   rays). Dense kernels on Cornell and `diffuse`; walk kernels on
+   `diffuse` and `layered`, and on `diffuse` re-flattened at 256
+   triangles a chunk (MAX_WALK_CHUNKS = 100: 75 chunks) for the primary
+   wavefront. Each kernel against its plain PyTorch version on the same
+   inputs: candidate entries bit-identical, hit masks, ids and blocked
+   flags identical (a knife-edge tie may differ only where both t agree
+   within 1e-5 relative, on at most 1e-5 of the rays). Bounce wavefronts
+   are checked on a fixed 2^18-ray subsample (whole ray blocks for the
+   walk sweeps), so the plain sweeps stay short. Kernels are timed with
+   CUDA events after a warm-up at every wavefront, the walk engine's plain
+   torch steps too (coherence sort, candidate sort); `diffuse` gets a
+   dense-vs-walk table per wavefront and a 256- vs 1024-ray block table.
+   Each kernel's bound is computed from this run's inputs: the
+   ray-triangle tests the sweeps report running (per block) times the FP32
+   operations of one test, over 132 SMs x 128 lanes at the card's max SM
+   clock, or the bytes over 3.35 TB/s, whichever is larger.
+2. Path phase. `render` (method "auto") of each cell at 1920x1080 with
+   every launch counter zeroed just before and read just after; each
+   cell's kernels must have launched and the image must be finite and
+   non-negative. Mrays/s with bench.py's accounting (pixels x spp x
+   bounces x 2 / seconds). Then torch.profiler over one 1-spp frame of the
+   two walk cells.
+3. Images. Each cell, and `conductor` and `dielectric` (so every lobe runs
+   on the card), at 256x256, 2 spp, through the kernels and again through
+   the plain versions; and Cornell at 48x48 on the GPU against the CPU (the
+   path the tests hold to the JAX package): by the engine-golden criterion
+   (> 99.5% of pixels within atol 1e-5 / rtol 1e-4, mean within rtol
+   1e-3). The GPU and CPU frames are also compared stage by stage (camera
+   rays, hits, surfaces, NEE, BSDF samples, throughput) and the first
+   stage that differs is printed, for Cornell and for `layered` (the
+   latter printed, not gated).
 
 Any failed check raises, so the process exits non-zero. The last lines of
-standard output are the card (nvidia-smi), one JSON object describing the
-kernels, and the result line {"ok": true, "device": {...}}. It exits
-non-zero, printing no result, without a CUDA device or without the rest
-of the repository.
+standard output are one JSON object describing the kernels, the card
+(nvidia-smi name and power limit) and the result line {"ok": true,
+"device": {...}}. It exits non-zero, printing no result, without a CUDA
+device or without the rest of the repository.
 """
 import contextlib
 import json
@@ -39,27 +58,53 @@ import sys
 import time
 
 CELLS = (
-    # scene, spp, max_bounces at 1920x1080 (bench.py headline scene, and
-    # scenes/config1_diffuse.json's scene and bounce count)
-    ("scene3_cornell", 16, 2),
-    ("diffuse", 4, 3),
+    # scene, spp, max_bounces at 1920x1080
+    ("scene3_cornell", 16, 2),  # bench.py headline scene: dense kernels
+    ("diffuse", 4, 3),          # scenes/config1_diffuse.json: walk kernels
+    ("layered", 2, 2),          # scenes/config4_layered.json: walk + glossy
 )
+DENSE_SCENES = ("scene3_cornell", "diffuse")
+WALK_SCENES = ("diffuse", "layered")
+IMAGE_SCENES = ("scene3_cornell", "diffuse", "layered", "conductor",
+                "dielectric")
 WIDTH, HEIGHT = 1920, 1080
 SMALL = 256              # kernels-vs-plain renders: SMALL x SMALL, 2 spp
-SUBSAMPLE = 1 << 18      # bounce-1 rays compared on `diffuse`
+SUBSAMPLE = 1 << 18      # bounce rays compared against the plain versions
 KNIFE_EDGE_REL_T = 1e-5  # ids may differ only at ties this close ...
 KNIFE_EDGE_FRAC = 1e-5   # ... on at most this fraction of the rays
+BLOCK_COMPARE = (256, 1024)
+WALK_CHUNKS_256 = 100    # MAX_WALK_CHUNKS giving `diffuse` 256-tri chunks
+# FP32 operations per test, counted from the CUDA sources: Moller-Trumbore
+# (mt(): 9 cross + 5 det + 2 |det| test + 1 div + 3 + 6 u + 9 q + 6 v + 6 t
+# + 7 bound tests) and the candidate kernel's slab test (6 sub + 6 mul + 10
+# min/max + 3 compares, then its live test, max(t_near, 0) and the min).
+MT_OPS = 54
+CAND_OPS = 28
+SMS, FP32_LANES = 132, 128       # H100 SXM
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 
 
 def log(*args):
     print(*args, flush=True)
 
 
-def gpu_name_and_power():
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+def nvidia_smi(query):
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def cuda_time_once(fn):
+    """(ms, result) of one call, timed with CUDA events, no warm-up."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
 
 
 def cuda_time_ms(fn, reps):
@@ -78,16 +123,34 @@ def cuda_time_ms(fn, reps):
 
 
 @contextlib.contextmanager
-def plain_dense(dk):
-    """Route the dense engine's CUDA path to the plain versions."""
-    saved = dk.closest_kernel, dk.any_kernel
+def plain_kernels():
+    """Route every kernel wrapper (dense and walk) to its plain version."""
+    from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
+    from optixpathtracer_tpu_torch.intersect import walk_kernels as wk
+    saved = (dk.closest_kernel, dk.any_kernel, wk.candidates_kernel,
+             wk.closest_kernel, wk.any_kernel)
     dk.closest_kernel = lambda tris, boxes, *rays: dk.closest_plain(tris,
                                                                     *rays)
     dk.any_kernel = lambda tris, boxes, *rays: dk.any_plain(tris, *rays)
+    wk.candidates_kernel = wk.candidates_plain
+    wk.closest_kernel = (lambda tris, boxes, cand, tnear, count, *rays:
+                         wk.closest_plain(tris, cand, count, *rays))
+    wk.any_kernel = (lambda tris, boxes, cand, count, *rays:
+                     wk.any_plain(tris, cand, count, *rays))
     try:
         yield
     finally:
-        dk.closest_kernel, dk.any_kernel = saved
+        (dk.closest_kernel, dk.any_kernel, wk.candidates_kernel,
+         wk.closest_kernel, wk.any_kernel) = saved
+
+
+def kernel_wrappers():
+    """{name: wrapper} of every ported kernel."""
+    from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
+    from optixpathtracer_tpu_torch.intersect import walk_kernels as wk
+    return {"dense_closest": dk.closest_kernel, "dense_any": dk.any_kernel,
+            "walk_candidates": wk.candidates_kernel,
+            "walk_closest": wk.closest_kernel, "walk_any": wk.any_kernel}
 
 
 @contextlib.contextmanager
@@ -133,7 +196,7 @@ def compare_closest(kernel, plain, what):
     err = float((kt - pt).abs()[same].max()) if same.any() else 0.0
     log(f"  {what}: {ki.numel()} rays, {int(hit.sum())} hits, "
         f"knife-edge ties {n_diff}, max |dt| {err:.3g}")
-    return err, n_diff
+    return err
 
 
 def compare_any(kernel, plain, what):
@@ -144,7 +207,25 @@ def compare_any(kernel, plain, what):
     return 0.0
 
 
-def kernel_phase(name, scene, camera, bounces, dev, stats):
+class Card:
+    """What the bounds need: the FP32 rate at the max SM clock."""
+
+    def __init__(self):
+        self.name_power = nvidia_smi("name,power.limit")
+        self.max_sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+        self.fp32_per_s = SMS * FP32_LANES * self.max_sm_mhz * 1e6
+
+    def bound(self, ops, n_bytes):
+        """(bound ms, "operations" or "bytes")."""
+        t_ops = ops / self.fp32_per_s * 1e3
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        return (t_ops, "operations") if t_ops >= t_bytes else \
+            (t_bytes, "bytes")
+
+
+def frame_waves(scene, camera, bounces, dev):
+    """The primary wavefront and the (o, d, tmin, tmax) of every closest and
+    shadow query of one real trace_paths frame ("auto" routing)."""
     import torch
     from optixpathtracer_tpu_torch.camera.camera import generate_rays
     from optixpathtracer_tpu_torch.core import rng
@@ -152,16 +233,10 @@ def kernel_phase(name, scene, camera, bounces, dev, stats):
     from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
     from optixpathtracer_tpu_torch.scene.flatten import (scene_active_lobes,
                                                          scene_flat_shading)
-
-    tris, boxes = dk.dense_arrays(scene)
     o, d = generate_rays(*camera.raygen_params(WIDTH, HEIGHT, dev), WIDTH,
                          HEIGHT)
     o = o.reshape(-1, 3).contiguous()
     d = d.reshape(-1, 3).contiguous()
-    r = o.shape[0]
-    primary = dk._rays(o, d, 0.0, 100.0)
-
-    # a real trace_paths frame: the wavefront and shadow rays of each bounce
     ys, xs = torch.meshgrid(torch.arange(HEIGHT, device=dev),
                             torch.arange(WIDTH, device=dev), indexing="ij")
     seed = rng.pixel_seed(WIDTH, xs.reshape(-1), ys.reshape(-1), 0)
@@ -172,57 +247,363 @@ def kernel_phase(name, scene, camera, bounces, dev, stats):
                          flat_shading=scene_flat_shading(scene))
     kinds = [c[0] for c in calls]
     assert kinds == ["closest", "any"] * bounces, kinds
-    waves = {"dense_closest": [dk._rays(*c[1:]) for c in calls[0::2]],
-             "dense_any": [dk._rays(*c[1:]) for c in calls[1::2]]}
-    launch = {"dense_closest": dk.closest_kernel, "dense_any": dk.any_kernel}
-    bounce_ms = {kname: [cuda_time_ms(
-        lambda w=w: launch[kname](tris, boxes, *w), 20) for w in ws]
-        for kname, ws in waves.items()}
+    closest = [dk._rays(*c[1:]) for c in calls[0::2]]
+    shadow = [dk._rays(*c[1:]) for c in calls[1::2]]
+    return closest, shadow
 
-    # checked: the primary wavefront in full (for occlusion too), then every
-    # bounce's closest and shadow rays, subsampled above 2^32 (ray, triangle)
-    # pairs so the plain sweep stays short
-    sub = slice(None)
-    if r * tris.shape[1] > (1 << 32):
-        gen = torch.Generator(device="cpu").manual_seed(0)
-        sub = torch.randperm(r, generator=gen)[:SUBSAMPLE].sort().values
-        sub = sub.to(dev)
-    checks = {"dense_closest": [("primary", primary)] + [
-                  (f"bounce-{b}", w) for b, w in
-                  enumerate(waves["dense_closest"]) if b],
-              "dense_any": [("primary", primary)] + [
-                  (f"bounce-{b} shadow", w) for b, w in
-                  enumerate(waves["dense_any"])]}
-    errs = {}
-    for kname, cases in checks.items():
-        errs[kname] = []
-        for label, rays in cases:
+
+def subsample(r, dev):
+    import torch
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    return torch.randperm(r, generator=gen)[:SUBSAMPLE].sort().values.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# Dense kernels
+# ---------------------------------------------------------------------------
+
+def dense_phase(name, scene, waves, card, stats):
+    import torch
+    from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
+    closest, shadow = waves
+    tris, boxes = dk.dense_arrays(scene)
+    launch = {"dense_closest": dk.closest_kernel, "dense_any": dk.any_kernel}
+    plain = {"dense_closest": dk.closest_plain, "dense_any": dk.any_plain}
+    per_wave = {"dense_closest": closest, "dense_any": [closest[0]] + shadow}
+    primary = closest[0]
+    r = primary[0].shape[0]
+    sub = (subsample(r, primary[0].device)
+           if r * tris.shape[1] > (1 << 32) else slice(None))
+    for kname, waves_k in per_wave.items():
+        errs, plain_ms = [], None
+        labels = (["primary"] + [f"bounce-{b}" for b in range(1, len(closest))]
+                  if kname == "dense_closest" else
+                  ["primary"] + [f"bounce-{b} shadow"
+                                 for b in range(len(shadow))])
+        for label, rays in zip(labels, waves_k):
             if label != "primary":
                 rays = [x[sub].contiguous() for x in rays]
-            if kname == "dense_closest":
-                k = dk.closest_kernel(tris, boxes, *rays)
-                p = dk.closest_plain(tris, *rays)
-                torch.cuda.synchronize()
-                errs[kname].append(compare_closest(
-                    k, p, f"{name} closest {label}")[0])
-            else:
-                k = dk.any_kernel(tris, boxes, *rays)
-                p = dk.any_plain(tris, *rays)
-                torch.cuda.synchronize()
-                errs[kname].append(compare_any(k, p, f"{name} any {label}"))
-
-    # times at the 1080p primary wavefront (plain: one timed call)
-    for kname, plain in (("dense_closest", dk.closest_plain),
-                         ("dense_any", dk.any_plain)):
+            k = launch[kname](tris, boxes, *rays)
+            ms_p, p = cuda_time_once(lambda: plain[kname](tris, *rays))
+            if label == "primary":
+                plain_ms = ms_p  # one call, at the primary wavefront
+            what = f"{name} {kname} {label}"
+            errs.append(compare_closest(k, p, what) if kname ==
+                        "dense_closest" else compare_any(k, p, what))
+        bounce_waves = closest if kname == "dense_closest" else shadow
+        bounce_ms = [cuda_time_ms(lambda w=w: launch[kname](tris, boxes, *w),
+                                  10) for w in bounce_waves]
         ms = cuda_time_ms(lambda: launch[kname](tris, boxes, *primary), 20)
-        plain_ms = cuda_time_ms(lambda: plain(tris, *primary), 1)
-        per_bounce = ", ".join(f"{t:.3f}" for t in bounce_ms[kname])
-        log(f"  {name} {kname}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms "
-            f"({r} primary rays); kernel per bounce of a frame "
-            f"[{per_bounce}] ms ({r} rays each)")
-        stats[(name, kname)] = {"max_abs_err": max(errs[kname]), "ms": ms,
-                                "plain_ms": plain_ms,
-                                "bounce_ms": bounce_ms[kname]}
+        launch[kname](tris, boxes, *primary)
+        tests = int(launch[kname].tests.sum())
+        n_bytes = r * (32 + (8 if kname == "dense_closest" else 4)) \
+            + tris.numel() * 4 + boxes.numel() * 4
+        bound_ms, bound_by = card.bound(tests * MT_OPS, n_bytes)
+        log(f"  {name} {kname}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+            f"bound {bound_ms:.3f} ms ({bound_by}; {tests:.4g} triangle "
+            f"tests) at the {r}-ray primary wavefront; per bounce of a "
+            f"frame [{', '.join(f'{t:.3f}' for t in bounce_ms)}] ms")
+        stats[(name, kname)] = {
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bounce_ms": bounce_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "tests": tests}
+
+
+# ---------------------------------------------------------------------------
+# Walk kernels
+# ---------------------------------------------------------------------------
+
+def walk_prepare(scene, rays, block_rays):
+    """Coherence-sorted rays, the candidate entries and sorted candidates,
+    through the kernels."""
+    from optixpathtracer_tpu_torch.intersect import walk_kernels as wk
+    perm = wk._coherence_perm(scene, rays[0], rays[1])
+    srays = tuple(x[perm].contiguous() for x in rays)
+    boxes = wk._chunk_boxes(scene)
+    entry = wk.candidates_kernel(boxes, *srays, block_rays)
+    return srays, boxes, entry, wk.sort_candidates(entry)
+
+
+def walk_block_rays(srays, cand, count, block_rays, n_sub):
+    """A fixed subset of whole ray blocks (about n_sub rays): the rays,
+    their ray indices and their candidate rows."""
+    import torch
+    nb = cand.shape[0]
+    keep = nb if nb * block_rays <= n_sub else n_sub // block_rays
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    blocks = torch.randperm(nb, generator=gen)[:keep].sort().values.to(
+        cand.device)
+    idx = (blocks[:, None] * block_rays + torch.arange(
+        block_rays, device=cand.device)).reshape(-1)
+    idx = idx[idx < srays[0].shape[0]]
+    return (tuple(x[idx].contiguous() for x in srays), idx,
+            cand[blocks].contiguous(), count[blocks].contiguous())
+
+
+def walk_check(name, label, scene, rays, kind, n_sub=None):
+    """Each walk kernel of one query against its plain version: entries
+    bit-identical over the whole wavefront, sweep results on whole blocks
+    (all of them, or about n_sub rays). Returns the max |dt|."""
+    import torch
+    from optixpathtracer_tpu_torch.intersect import walk_kernels as wk
+    block = wk.BLOCK_RAYS
+    srays, boxes, entry, (cand, tnear, count) = walk_prepare(scene, rays,
+                                                             block)
+    want = wk.candidates_plain(boxes, *srays, block)
+    torch.cuda.synchronize()
+    if not torch.equal(entry, want):
+        n = int((entry != want).sum())
+        raise AssertionError(f"{name} walk_candidates {label}: entries "
+                             f"differ in {n} slots")
+    log(f"  {name} walk_candidates {label}: {entry.shape[0]} blocks x "
+        f"{entry.shape[1]} slots identical, mean {float(count.float().mean()):.1f}"
+        f" candidates a block")
+    tris = scene.walk_tris
+    if kind == "closest":
+        kt, ki = wk.closest_kernel(tris, boxes, cand, tnear, count, *srays,
+                                   block)
+        sub, idx, scand, scount = walk_block_rays(srays, cand, count, block,
+                                                  n_sub or srays[0].shape[0])
+        pt, pi = wk.closest_plain(tris, scand, scount, *sub, block)
+        torch.cuda.synchronize()
+        return compare_closest((kt[idx], ki[idx]), (pt, pi),
+                               f"{name} walk_closest {label}")
+    kb = wk.any_kernel(tris, boxes, cand, count, *srays, block)
+    sub, idx, scand, scount = walk_block_rays(srays, cand, count, block,
+                                              n_sub or srays[0].shape[0])
+    pb = wk.any_plain(tris, scand, scount, *sub, block)
+    torch.cuda.synchronize()
+    return compare_any(kb[idx], pb, f"{name} walk_any {label}")
+
+
+def walk_times(scene, rays, kind, block_rays, reps=10):
+    """ms of each step of one walk query: coherence sort, candidates,
+    candidate sort, sweep; and the sweep's triangle tests."""
+    from optixpathtracer_tpu_torch.intersect import walk_kernels as wk
+    srays, boxes, entry, (cand, tnear, count) = walk_prepare(scene, rays,
+                                                             block_rays)
+    tris = scene.walk_tris
+
+    def perm():
+        p = wk._coherence_perm(scene, rays[0], rays[1])
+        return [x[p].contiguous() for x in rays]
+
+    if kind == "closest":
+        def sweep():
+            return wk.closest_kernel(tris, boxes, cand, tnear, count, *srays,
+                                     block_rays)
+    else:
+        def sweep():
+            return wk.any_kernel(tris, boxes, cand, count, *srays,
+                                 block_rays)
+    out = {"perm": cuda_time_ms(perm, reps),
+           "candidates": cuda_time_ms(
+               lambda: wk.candidates_kernel(boxes, *srays, block_rays), reps),
+           "sort": cuda_time_ms(lambda: wk.sort_candidates(entry), reps),
+           "sweep": cuda_time_ms(sweep, reps)}
+    sweep()
+    kernel = wk.closest_kernel if kind == "closest" else wk.any_kernel
+    out["tests"] = int(kernel.tests.sum())
+    out["mean_swept"] = float(kernel.swept.float().mean())
+    out["total"] = out["perm"] + out["candidates"] + out["sort"] + out["sweep"]
+    out["mean_candidates"] = float(count.float().mean())
+    return out
+
+
+def walk_phase(name, scene, waves, card, stats, dense_table=False):
+    import torch
+    from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
+    from optixpathtracer_tpu_torch.intersect import walk_kernels as wk
+    closest, shadow = waves
+    primary = closest[0]
+    r = primary[0].shape[0]
+    errs = {"walk_candidates": [0.0], "walk_closest": [], "walk_any": []}
+    errs["walk_closest"].append(walk_check(name, "primary", scene, primary,
+                                           "closest"))
+    errs["walk_any"].append(walk_check(name, "primary", scene, primary,
+                                       "any"))
+    for b, w in enumerate(closest[1:], start=1):
+        errs["walk_closest"].append(walk_check(name, f"bounce-{b}", scene, w,
+                                               "closest", SUBSAMPLE))
+    for b, w in enumerate(shadow):
+        errs["walk_any"].append(walk_check(name, f"bounce-{b} shadow", scene,
+                                           w, "any", SUBSAMPLE))
+
+    block = wk.BLOCK_RAYS
+    per = {"closest": [walk_times(scene, w, "closest", block)
+                       for w in closest],
+           "any": [walk_times(scene, w, "any", block) for w in shadow]}
+    prim = {"closest": walk_times(scene, primary, "closest", block, 20),
+            "any": walk_times(scene, primary, "any", block, 20)}
+    for kind, rows in per.items():
+        for b, t in enumerate(rows):
+            log(f"  {name} walk {kind} bounce-{b}: perm {t['perm']:.3f} + "
+                f"candidates {t['candidates']:.3f} + sort {t['sort']:.3f} + "
+                f"sweep {t['sweep']:.3f} = {t['total']:.3f} ms "
+                f"({t['mean_candidates']:.1f} candidates, "
+                f"{t['mean_swept']:.1f} swept a block)")
+
+    # plain versions at the primary wavefront: one call each
+    srays, boxes, entry, (cand, tnear, count) = walk_prepare(scene, primary,
+                                                             block)
+    plain_ms = {
+        "walk_candidates": cuda_time_ms(
+            lambda: wk.candidates_plain(boxes, *srays, block), 1),
+        "walk_closest": cuda_time_ms(
+            lambda: wk.closest_plain(scene.walk_tris, cand, count, *srays,
+                                     block), 1),
+        "walk_any": cuda_time_ms(
+            lambda: wk.any_plain(scene.walk_tris, cand, count, *srays,
+                                 block), 1)}
+    n_chunks, chunk = scene.walk_tris.shape[0], scene.walk_chunk
+    maxc_pad = cand.shape[1]
+    nb = cand.shape[0]
+    tri_bytes = scene.walk_tris.numel() * 4 + boxes.numel() * 4
+    cand_ops = r * n_chunks * CAND_OPS
+    bounds = {
+        "walk_candidates": card.bound(
+            cand_ops, r * 32 + nb * maxc_pad * 4 + boxes.numel() * 4),
+        "walk_closest": card.bound(
+            prim["closest"]["tests"] * MT_OPS,
+            r * 40 + nb * maxc_pad * 8 + nb * 4 + tri_bytes),
+        "walk_any": card.bound(
+            prim["any"]["tests"] * MT_OPS,
+            r * 36 + nb * maxc_pad * 4 + nb * 4 + tri_bytes)}
+    ms = {"walk_candidates": prim["closest"]["candidates"],
+          "walk_closest": prim["closest"]["sweep"],
+          "walk_any": prim["any"]["sweep"]}
+    bounce_ms = {"walk_candidates": [t["candidates"] for t in per["closest"]],
+                 "walk_closest": [t["sweep"] for t in per["closest"]],
+                 "walk_any": [t["sweep"] for t in per["any"]]}
+    for kname in ms:
+        bound_ms, bound_by = bounds[kname]
+        log(f"  {name} {kname}: kernel {ms[kname]:.3f} ms, plain "
+            f"{plain_ms[kname]:.1f} ms, bound {bound_ms:.3f} ms ({bound_by})"
+            f" at the {r}-ray primary wavefront (block {block})")
+        stats[(name, kname)] = {
+            "max_abs_err": max(errs[kname]), "ms": ms[kname],
+            "plain_ms": plain_ms[kname], "bounce_ms": bounce_ms[kname],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "walk_total_ms": {k: [t["total"] for t in v]
+                              for k, v in per.items()}}
+
+    if dense_table:
+        tris, dboxes = dk.dense_arrays(scene)
+        log(f"  {name} dense vs walk per wavefront (ms; walk = perm + "
+            f"candidates + sort + sweep, block {block}):")
+        rows = []
+        for kind, waves_k in (("closest", closest), ("any", shadow)):
+            fn = dk.closest_kernel if kind == "closest" else dk.any_kernel
+            for b, w in enumerate(waves_k):
+                dense_ms = cuda_time_ms(lambda: fn(tris, dboxes, *w), 10)
+                walk = per[kind][b]["total"]
+                rows.append({"kind": kind, "bounce": b, "dense_ms": dense_ms,
+                             "walk_ms": walk})
+                log(f"    {kind} bounce-{b}: dense {dense_ms:.3f}, walk "
+                    f"{walk:.3f} ({dense_ms / walk:.2f}x)")
+        stats[(name, "dense_vs_walk")] = rows
+        log(f"  {name} walk block size (ms, candidates + sweep):")
+        blocks = {}
+        for b_rays in BLOCK_COMPARE:
+            for kind, w in (("closest", closest[0]),
+                            ("closest b1", closest[min(1, len(closest) - 1)]),
+                            ("any b0", shadow[0])):
+                t = walk_times(scene, w, kind.split()[0], b_rays)
+                blocks[f"{kind}@{b_rays}"] = t["candidates"] + t["sweep"]
+                log(f"    {kind} block {b_rays}: candidates "
+                    f"{t['candidates']:.3f} + sweep {t['sweep']:.3f}")
+        stats[(name, "block_compare")] = blocks
+
+
+def chunk256_phase(model, lights, camera, dev, stats):
+    from optixpathtracer_tpu_torch.scene import flatten as flatten_mod
+    saved = flatten_mod.MAX_WALK_CHUNKS
+    flatten_mod.MAX_WALK_CHUNKS = WALK_CHUNKS_256
+    try:
+        scene = flatten_mod.flatten_model(model, lights, device=dev)
+    finally:
+        flatten_mod.MAX_WALK_CHUNKS = saved
+    assert scene.walk_chunk == 256, scene.walk_chunk
+    log(f"diffuse at chunk {scene.walk_chunk}: {scene.walk_tris.shape[0]} "
+        f"chunks")
+    closest, _ = frame_waves(scene, camera, 1, dev)
+    err = walk_check("diffuse@256", "primary", scene, closest[0], "closest")
+    walk_check("diffuse@256", "primary", scene, closest[0], "any")
+    stats["chunk256_err"] = err
+
+
+# ---------------------------------------------------------------------------
+# Path phase and images
+# ---------------------------------------------------------------------------
+
+def path_phase(name, scene, camera, spp, bounces, dev, stats, card):
+    import numpy as np
+    import torch
+    from optixpathtracer_tpu_torch.integrate import path
+    wrappers = kernel_wrappers()
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    img = path.render(scene, camera, WIDTH, HEIGHT, spp=spp,
+                      max_bounces=bounces, intersect_method="auto")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    img = img.cpu().numpy()
+    if img.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(img).all() \
+            or (img < 0).any() or img.mean() <= 0:
+        raise AssertionError(f"{name}: bad image")
+    want = (("dense_closest", "dense_any") if name == "scene3_cornell" else
+            ("walk_candidates", "walk_closest", "walk_any"))
+    for kname in want:
+        if launches[kname] == 0:
+            raise AssertionError(f"{name}: {kname} was never launched")
+        stats[(name, kname)]["launches"] = launches[kname]
+    mrays = WIDTH * HEIGHT * spp * bounces * 2 / seconds / 1e6
+    log(f"  {name} render {WIDTH}x{HEIGHT} {spp} spp {bounces} bounces: "
+        f"{seconds:.3f} s, {mrays:.2f} Mrays/s on {card.name_power}; "
+        f"launches {launches}; mean {img.mean():.5f}")
+    stats[(name, "render")] = {"seconds": seconds, "mrays_per_s": mrays}
+
+
+def profile_frame(name, scene, camera, bounces, dev):
+    """torch.profiler over one 1-spp 1080p frame: wall ms, device busy ms,
+    the walk and dense kernels' ms and the number of kernel launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from optixpathtracer_tpu_torch.integrate import path
+    path.render(scene, camera, WIDTH, HEIGHT, spp=1, max_bounces=bounces)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        path.render(scene, camera, WIDTH, HEIGHT, spp=1, max_bounces=bounces)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device_us, ours_us, launches = 0.0, {}, 0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = ev.self_device_time_total
+        if dev_us <= 0:
+            continue
+        device_us += dev_us
+        launches += ev.count
+        for tag in ("walk_candidates", "walk_closest", "walk_any",
+                    "dense_closest", "dense_any"):
+            if tag in ev.key:
+                ours_us[tag] = ours_us.get(tag, 0.0) + dev_us
+    ours = {k: round(v / 1e3, 3) for k, v in ours_us.items()}
+    if device_us == 0:
+        log(f"  {name} profile: the profiler saw no device time")
+        return
+    log(f"  {name} profile, one 1-spp frame: wall {wall:.1f} ms, device "
+        f"busy {device_us / 1e3:.1f} ms ({device_us / 1e3 / wall:.0%}), "
+        f"intersection kernels {ours} ms, other "
+        f"{(device_us - sum(ours_us.values())) / 1e3:.1f} ms, "
+        f"{launches} kernel launches")
 
 
 def render_close(img, want):
@@ -231,51 +612,179 @@ def render_close(img, want):
     return float(close.mean()), float(abs(img.mean() / want.mean() - 1.0))
 
 
-def assert_render_match(img, want, what):
+def assert_render_match(img, want, what, gate=True):
     frac, mean_rel = render_close(img, want)
     log(f"  {what}: {frac:.5f} of pixels match, mean rel diff "
         f"{mean_rel:.2e}")
-    if not (frac > 0.995 and mean_rel <= 1e-3):
+    if gate and not (frac > 0.995 and mean_rel <= 1e-3):
         raise AssertionError(f"{what}: images disagree")
 
 
-def path_phase(name, scene, camera, spp, bounces, dev, stats, card):
-    import numpy as np
+def images_phase(scenes, dev):
+    from optixpathtracer_tpu_torch.integrate import path
+    for name in IMAGE_SCENES:
+        scene, camera, _, bounces = scenes[name]
+        small = path.render(scene, camera, SMALL, SMALL, spp=2,
+                            max_bounces=bounces)
+        with plain_kernels():
+            plain = path.render(scene, camera, SMALL, SMALL, spp=2,
+                                max_bounces=bounces)
+        assert_render_match(small.cpu().numpy(), plain.cpu().numpy(),
+                            f"{name} {SMALL}x{SMALL} 2 spp kernels vs plain")
+
+
+@contextlib.contextmanager
+def recorded_stages(path, records):
+    """Record, in the order a frame makes them, every stage of one render:
+    camera rays, closest hits, surfaces, shadow queries, NEE, BSDF samples
+    and the throughput after each bounce."""
+    saved = (path.generate_rays, path.intersect_closest, path.make_surface,
+             path.intersect_any, path._nee, path.dispatch.sample,
+             path._shade_wave)
+
+    def rec(stage, **tensors):
+        records.append((stage, tensors))
+
+    def generate_rays(*a):
+        o, d = saved[0](*a)
+        rec("camera rays", o=o, d=d)
+        return o, d
+
+    def closest(*a, **k):
+        hit = saved[1](*a, **k)
+        rec("closest hits", t=hit.t, tri_id=hit.tri_id, u=hit.u, v=hit.v)
+        return hit
+
+    def surface(*a, **k):
+        seed, s = saved[2](*a, **k)
+        rec("surfaces", position=s.position, s_normal=s.s_normal,
+            wo_local=s.wo_local)
+        return seed, s
+
+    def any_hit(*a, **k):
+        blocked = saved[3](*a, **k)
+        rec("shadow rays", o=a[1], d=a[2], blocked=blocked)
+        return blocked
+
+    def nee(*a, **k):
+        seed, contrib = saved[4](*a, **k)
+        rec("NEE", contrib=contrib)
+        return seed, contrib
+
+    def sample(*a, **k):
+        seed, bs = saved[5](*a, **k)
+        rec("BSDF samples", direction=bs.direction, pdf=bs.pdf,
+            color=bs.color)
+        return seed, bs
+
+    def shade(*a, **k):
+        out = saved[6](*a, **k)
+        rec("throughput", beta=out[3], radiance=out[2])
+        return out
+
+    (path.generate_rays, path.intersect_closest, path.make_surface,
+     path.intersect_any, path._nee, path.dispatch.sample,
+     path._shade_wave) = (generate_rays, closest, surface, any_hit, nee,
+                          sample, shade)
+    try:
+        yield
+    finally:
+        (path.generate_rays, path.intersect_closest, path.make_surface,
+         path.intersect_any, path._nee, path.dispatch.sample,
+         path._shade_wave) = saved
+
+
+def _ulps(a, b):
+    """Max distance in float32 units in the last place."""
+    import torch
+    ia = a.contiguous().view(torch.int32).long()
+    ib = b.contiguous().view(torch.int32).long()
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((ia - ib).abs().max())
+
+
+def stage_trace(name, scene, camera, size, bounces, method):
+    """Render one 1-spp frame on the GPU and on the CPU, recording every
+    stage, and print the first stage that differs and by how much."""
     import torch
     from optixpathtracer_tpu_torch.integrate import path
-    from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
+    from optixpathtracer_tpu_torch.scene.flatten import (scene_active_lobes,
+                                                         scene_flat_shading)
+    runs = []
+    for dev_scene in (scene, scene.to("cpu")):
+        records = []
+        params = camera.raygen_params(size, size, dev_scene.device)
+        with recorded_stages(path, records):
+            path.render_sample(
+                dev_scene, *params, size, size, 0, max_bounces=bounces,
+                intersect_method=method,
+                active_lobes=scene_active_lobes(dev_scene),
+                use_textures=False,
+                flat_shading=scene_flat_shading(dev_scene))
+        runs.append(records)
+    gpu, cpu = runs
+    assert [s for s, _ in gpu] == [s for s, _ in cpu]
+    first = None
+    bounce = -1
+    for (stage, g), (_, c) in zip(gpu, cpu):
+        bounce += stage == "closest hits"
+        for k, gv in g.items():
+            gv, cv = gv.cpu(), c[k]
+            if torch.equal(gv, cv):
+                continue
+            n = int((gv != cv).sum())
+            if gv.is_floating_point():
+                size_txt = (f"max |diff| {float((gv - cv).abs().max()):.3g}, "
+                            f"max {_ulps(gv, cv)} ulp")
+            else:
+                size_txt = "values differ"
+            where = "before the first bounce" if bounce < 0 else \
+                f"bounce {bounce}"
+            log(f"  {name} GPU vs CPU: {stage}.{k} ({where}) differs in {n} "
+                f"of {gv.numel()} values, {size_txt}")
+            if first is None:
+                first = (stage, k, bounce, n, size_txt)
+    if first is None:
+        log(f"  {name} GPU vs CPU: every stage identical")
+    else:
+        log(f"  {name} GPU vs CPU: first difference at {first[0]}."
+            f"{first[1]} (bounce {max(first[2], 0)}), in {first[3]} values, "
+            f"{first[4]}")
+    return first
 
-    torch.cuda.synchronize()
-    dk.closest_kernel.launches = 0
-    dk.any_kernel.launches = 0
-    t0 = time.perf_counter()
-    img = path.render(scene, camera, WIDTH, HEIGHT, spp=spp,
-                      max_bounces=bounces, intersect_method="auto")
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = {"dense_closest": dk.closest_kernel.launches,
-                "dense_any": dk.any_kernel.launches}
-    img = img.cpu().numpy()
-    if img.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(img).all() \
-            or (img < 0).any() or img.mean() <= 0:
-        raise AssertionError(f"{name}: bad image")
-    for kname, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"{name}: {kname} was never launched")
-        stats[(name, kname)]["launches"] = n
-    mrays = WIDTH * HEIGHT * spp * bounces * 2 / seconds / 1e6
-    log(f"  {name} render {WIDTH}x{HEIGHT} {spp} spp {bounces} bounces: "
-        f"{seconds:.3f} s, {mrays:.2f} Mrays/s on {card}; launches "
-        f"{launches}; mean {img.mean():.5f}")
-    stats[(name, "render")] = {"seconds": seconds, "mrays_per_s": mrays}
 
-    small = path.render(scene, camera, SMALL, SMALL, spp=2,
-                        max_bounces=bounces)
-    with plain_dense(dk):
-        plain = path.render(scene, camera, SMALL, SMALL, spp=2,
-                            max_bounces=bounces)
-    assert_render_match(small.cpu().numpy(), plain.cpu().numpy(),
-                        f"{name} {SMALL}x{SMALL} 2 spp kernels vs plain")
+def gpu_vs_cpu_phase(scenes):
+    from optixpathtracer_tpu_torch.integrate import path
+    scene, camera, _, _ = scenes["scene3_cornell"]
+    gpu = path.render(scene, camera, 48, 48, spp=2, max_bounces=2)
+    cpu = path.render(scene.to("cpu"), camera, 48, 48, spp=2, max_bounces=2)
+    assert_render_match(gpu.cpu().numpy(), cpu.numpy(),
+                        "scene3_cornell 48x48 2 spp GPU vs CPU")
+    stage_trace("scene3_cornell", scene, camera, 48, 2, "auto")
+    scene, camera, _, _ = scenes["layered"]
+    gpu = path.render(scene, camera, 48, 48, spp=2, max_bounces=2,
+                      intersect_method="walk")
+    cpu = path.render(scene.to("cpu"), camera, 48, 48, spp=2,
+                      max_bounces=2, intersect_method="walk")
+    assert_render_match(gpu.cpu().numpy(), cpu.numpy(),
+                        "layered 48x48 2 spp GPU vs CPU (not gated)",
+                        gate=False)
+    stage_trace("layered", scene, camera, 48, 2, "walk")
+
+
+KERNEL_SOURCES = {
+    "dense_closest": ("dense_intersect.cu",
+                      "optixpathtracer_tpu/intersect/pallas_kernels.py:114"),
+    "dense_any": ("dense_intersect.cu",
+                  "optixpathtracer_tpu/intersect/pallas_kernels.py:145"),
+    "walk_candidates": ("walk_intersect.cu",
+                        "optixpathtracer_tpu/intersect/walk_kernels.py:444"),
+    "walk_closest": ("walk_intersect.cu",
+                     "optixpathtracer_tpu/intersect/walk_kernels.py:139"),
+    "walk_any": ("walk_intersect.cu",
+                 "optixpathtracer_tpu/intersect/walk_kernels.py:240"),
+}
 
 
 def main():
@@ -284,56 +793,73 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from optixpathtracer_tpu_torch import _build
-    from optixpathtracer_tpu_torch.integrate import path
     from optixpathtracer_tpu_torch.scene import flatten_model
     from optixpathtracer_tpu_torch.scene.procedural import PRESETS
 
-    card = gpu_name_and_power()
-    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    card = Card()
+    log(f"card: {card.name_power}, max SM clock {card.max_sm_mhz:.0f} MHz; "
+        f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     reports = _build.build()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
     for line in "".join(reports.values()).splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas: " + line.strip())
     dev = torch.device("cuda")
 
     stats = {}
     scenes = {}
-    for name, spp, bounces in CELLS:
+    cells = {name: (spp, bounces) for name, spp, bounces in CELLS}
+    for name in dict.fromkeys([c[0] for c in CELLS] + list(IMAGE_SCENES)):
         model, camera, lights = PRESETS[name]()
         scene = flatten_model(model, lights, device=dev)
+        spp, bounces = cells.get(name, (2, 2))
         scenes[name] = (scene, camera, spp, bounces)
-        log(f"{name}: {int(scene.tri_valid.sum())} triangles")
+        log(f"{name}: {int(scene.tri_valid.sum())} triangles, "
+            f"{scene.walk_tris.shape[0]} walk chunks of {scene.walk_chunk}")
+        if name not in cells:
+            continue
         log("kernel phase")
-        kernel_phase(name, scene, camera, bounces, dev, stats)
+        waves = frame_waves(scene, camera, bounces, dev)
+        if name in DENSE_SCENES:
+            dense_phase(name, scene, waves, card, stats)
+        if name in WALK_SCENES:
+            walk_phase(name, scene, waves, card, stats,
+                       dense_table=name == "diffuse")
+        if name == "diffuse":
+            chunk256_phase(model, lights, camera, dev, stats)
     log("path phase")
-    for name, (scene, camera, spp, bounces) in scenes.items():
+    for name, spp, bounces in CELLS:
+        scene, camera, _, _ = scenes[name]
         path_phase(name, scene, camera, spp, bounces, dev, stats, card)
-
-    # the GPU path against the CPU path the tests hold to the JAX package
-    scene, camera, _, _ = scenes["scene3_cornell"]
-    gpu = path.render(scene, camera, 48, 48, spp=2, max_bounces=2)
-    cpu = path.render(scene.to("cpu"), camera, 48, 48, spp=2, max_bounces=2)
-    assert_render_match(gpu.cpu().numpy(), cpu.numpy(),
-                        "scene3_cornell 48x48 2 spp GPU vs CPU")
+    for name in WALK_SCENES:
+        scene, camera, _, bounces = scenes[name]
+        profile_frame(name, scene, camera, bounces, dev)
+    log("images")
+    images_phase(scenes, dev)
+    gpu_vs_cpu_phase(scenes)
 
     kernels = []
-    for name, _, _ in CELLS:
-        for kname, line in (("dense_closest", 114), ("dense_any", 145)):
-            s = stats[(name, kname)]
+    for name, spp, bounces in CELLS:
+        for kname, (src, replaces) in KERNEL_SOURCES.items():
+            s = stats.get((name, kname))
+            if s is None or "launches" not in s:
+                continue
             kernels.append({
                 "name": f"{kname}:{name}", "route": "cuda",
-                "source": "optixpathtracer_tpu_torch/csrc/dense_intersect.cu",
-                "replaces": f"optixpathtracer_tpu/intersect/pallas_kernels.py"
-                            f":{line}",
-                "launches": s["launches"], "max_abs_err": s["max_abs_err"],
-                "ms": s["ms"], "plain_ms": s["plain_ms"],
+                "source": f"optixpathtracer_tpu_torch/csrc/{src}",
+                "replaces": replaces, "launches": s["launches"],
+                "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+                "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                "bound_by": s["bound_by"], "library_ms": None,
                 "bounce_ms": s["bounce_ms"],
                 "render_mrays_per_s": stats[(name, "render")]["mrays_per_s"],
             })
+    assert {k["name"].split(":")[0] for k in kernels} == set(KERNEL_SOURCES)
+    print(json.dumps({"dense_vs_walk": stats[("diffuse", "dense_vs_walk")],
+                      "block_compare": stats[("diffuse", "block_compare")]}))
     print(json.dumps({"kernels": kernels}))
-    print(card)
+    print(card.name_power)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -45,3 +45,14 @@ def where_sample(mask, a: BSDFSample, b: BSDFSample) -> BSDFSample:
         specular=torch.where(mask, a.specular, b.specular),
         glossy=torch.where(mask, a.glossy, b.glossy),
     )
+
+
+def roughness_to_alpha(roughness):
+    """alpha = roughness^2 (reference `Surface.h:26-30` GetAlpha)."""
+    return roughness * roughness
+
+
+def is_effectively_smooth(alpha):
+    """alpha < 1e-3 is a perfect specular lobe (reference
+    `Surface.h:22-24`)."""
+    return alpha < 1e-3

@@ -2,9 +2,11 @@
 (port of `optixpathtracer_tpu/bsdf/dispatch.py`).
 
 Materials carry a first-class type enum. Dispatch evaluates every lobe in
-the static `active_lobes` tuple and lane-selects, so the wavefront stays
-dense. This slice ports the DIFFUSE lobe; a scene whose `active_lobes`
-holds another lobe raises NotImplementedError until that lobe's slice.
+the static `active_lobes` tuple on every lane and lane-selects, so the
+wavefront stays dense and every lobe advances the RNG streams the same way
+on every lane, as in the reference. The material-sort `gates` argument
+(runtime lobe skipping) is not ported yet and raises with the other sort
+options of `trace_paths`.
 """
 from __future__ import annotations
 
@@ -13,7 +15,10 @@ from typing import NamedTuple
 import torch
 
 from ..core import rng
+from . import conductor as _conductor
+from . import dielectric as _dielectric
 from . import diffuse as _diffuse
+from . import glossy_diffuse as _glossy
 from .base import BSDFSample, where_sample
 
 DIFFUSE = 0
@@ -31,7 +36,6 @@ MATERIAL_NAMES = {
 }
 
 ALL_LOBES = (DIFFUSE, CONDUCTOR, DIELECTRIC, GLOSSY_DIFFUSE)
-PORTED_LOBES = (DIFFUSE,)
 
 
 class MaterialParams(NamedTuple):
@@ -54,13 +58,11 @@ def resolve_stochastic_lobe(seed, mat: MaterialParams):
     return seed, mat._replace(mat_type=new_type.to(torch.int32))
 
 
-def _check_lobes(active_lobes):
-    missing = [lobe for lobe in active_lobes if lobe not in PORTED_LOBES]
-    if missing:
+def _check_gates(gates):
+    if gates is not None:
         raise NotImplementedError(
-            f"BSDF lobes {missing} are not ported yet (this slice has "
-            f"DIFFUSE={DIFFUSE} only; fresnel/microfacet/conductor/"
-            "dielectric/glossy-diffuse come in a later slice)")
+            "runtime lobe gates (material_sort) are not ported yet; they "
+            "come with the trace_paths sort options")
 
 
 def _mirror_z(v):
@@ -69,15 +71,18 @@ def _mirror_z(v):
 
 
 # Two-sidedness: surfaces keep their winding orientation, so backface hits
-# see wo.z < 0. The one-sided lobes are made two-sided PBRT-style here:
-# mirror wo/wi through the tangent plane when wo.z < 0.
+# see wo.z < 0. The one-sided lobes (diffuse, conductor) are made two-sided
+# PBRT-style here: mirror wo/wi through the tangent plane when wo.z < 0.
+# The dielectric needs the true orientation and the layered lobe flips
+# itself (`GlossyDiffuse.h:110-135`).
 
 
-def f(seed, mat: MaterialParams, wo, wi, active_lobes=ALL_LOBES):
-    """Evaluate the BSDF for every lane (resolved types only). Returns
-    (seed, rgb). `active_lobes` (static) prunes lobes absent from the
-    scene."""
-    _check_lobes(active_lobes)
+def f(seed, mat: MaterialParams, wo, wi, active_lobes=ALL_LOBES,
+      gates=None):
+    """Evaluate the BSDF for every lane (resolved types only: call
+    `resolve_stochastic_lobe` first). Returns (seed, rgb). `active_lobes`
+    (static) prunes lobes absent from the scene."""
+    _check_gates(gates)
     t = mat.mat_type[..., None]
     flip = (wo[..., 2] < 0.0)[..., None]
     wo_m = torch.where(flip, _mirror_z(wo), wo)
@@ -86,19 +91,74 @@ def f(seed, mat: MaterialParams, wo, wi, active_lobes=ALL_LOBES):
     if DIFFUSE in active_lobes:
         out = torch.where(t == DIFFUSE, _diffuse.f(mat.albedo, wo_m, wi_m),
                           out)
+    if CONDUCTOR in active_lobes:
+        out = torch.where(t == CONDUCTOR,
+                          _conductor.f(mat.albedo, mat.roughness, wo_m, wi_m),
+                          out)
+    if DIELECTRIC in active_lobes:
+        # the pure dielectric lobe tinted by albedo, as in the reference's
+        # commented dispatch (`devicePrograms.cu:333`); it needs the true
+        # orientation (the signed cosine picks the eta side), so no mirror
+        out = torch.where(t == DIELECTRIC,
+                          _dielectric.f(mat.roughness, wo, wi, eta=mat.ior)
+                          * mat.albedo, out)
+    if GLOSSY_DIFFUSE in active_lobes:
+        seed, f_glossy = _glossy.f(seed, mat.albedo, mat.roughness, wo, wi,
+                                   eta=mat.ior)
+        out = torch.where(t == GLOSSY_DIFFUSE, f_glossy, out)
     return seed, out
 
 
-def sample(seed, mat: MaterialParams, wo, active_lobes=ALL_LOBES):
+def sample(seed, mat: MaterialParams, wo, active_lobes=ALL_LOBES,
+           gates=None):
     """Importance-sample the BSDF per lane. Returns (seed, BSDFSample)."""
-    _check_lobes(active_lobes)
+    _check_gates(gates)
     t = mat.mat_type
     flip = (wo[..., 2] < 0.0)[..., None]
     wo_m = torch.where(flip, _mirror_z(wo), wo)
+
+    def _unflip(s):
+        return s._replace(direction=torch.where(flip, _mirror_z(s.direction),
+                                                s.direction))
+
     out = BSDFSample.invalid(wo.shape[:-1], wo.device)
     if DIFFUSE in active_lobes:
         seed, s = _diffuse.sample(seed, mat.albedo, wo_m)
-        s = s._replace(direction=torch.where(flip, _mirror_z(s.direction),
-                                             s.direction))
-        out = where_sample(t == DIFFUSE, s, out)
+        out = where_sample(t == DIFFUSE, _unflip(s), out)
+    if CONDUCTOR in active_lobes:
+        seed, s = _conductor.sample(seed, mat.albedo, mat.roughness, wo_m)
+        out = where_sample(t == CONDUCTOR, _unflip(s), out)
+    if DIELECTRIC in active_lobes:
+        seed, s = _dielectric.sample(seed, mat.roughness, wo, eta=mat.ior)
+        out = where_sample(t == DIELECTRIC,
+                           s._replace(color=s.color * mat.albedo), out)
+    if GLOSSY_DIFFUSE in active_lobes:
+        seed, s = _glossy.sample(seed, mat.albedo, mat.roughness, wo,
+                                 eta=mat.ior)
+        out = where_sample(t == GLOSSY_DIFFUSE, s, out)
     return seed, out
+
+
+def pdf(mat: MaterialParams, wo, wi, layered: str = "error"):
+    """Sampling pdf per lane of the deterministic lobes. The layered lobe
+    has no closed-form pdf (the integrator has no MIS: its only lights are
+    delta point lights): layered="error" gives its lanes NaN, so a misuse
+    shows; layered="approx" gives them 0.5 * (diffuse + coat reflection),
+    a usable MIS proxy."""
+    if layered not in ("error", "approx"):
+        raise ValueError(f"layered={layered!r} (want 'error' or 'approx')")
+    flip = (wo[..., 2] < 0.0)[..., None]
+    wo_m = torch.where(flip, _mirror_z(wo), wo)
+    wi_m = torch.where(flip, _mirror_z(wi), wi)
+    p_diffuse = _diffuse.pdf(wo_m, wi_m)
+    p_conductor = _conductor.pdf(mat.roughness, wo_m, wi_m)
+    p_dielectric = _dielectric.pdf(mat.roughness, wo, wi, eta=mat.ior)
+    if layered == "approx":
+        p_glossy = 0.5 * (p_diffuse + _dielectric.pdf(
+            mat.roughness, wo, wi, eta=mat.ior, transmission=False))
+    else:
+        p_glossy = torch.full_like(p_diffuse, float("nan"))
+    t = mat.mat_type
+    out = torch.where(t == DIELECTRIC, p_dielectric, p_glossy)
+    out = torch.where(t == CONDUCTOR, p_conductor, out)
+    return torch.where(t == DIFFUSE, p_diffuse, out)

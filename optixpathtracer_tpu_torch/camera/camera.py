@@ -13,13 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..core.math import normalize
-
-# The two 4x4 products in generate_rays must run in full float32: TF32 keeps
-# ~10 mantissa bits and would move primary rays by about 1e-3, enough to
-# change which triangle a ray hits. PyTorch defaults to False for matmuls;
-# the port states it rather than rely on the default.
-torch.backends.cuda.matmul.allow_tf32 = False
+from ..core.math import div, normalize
 
 
 def blender_to_engine_position(p):
@@ -102,8 +96,11 @@ class Camera:
         return perspective(np.radians(self.fov_degrees), aspect,
                            self.near, self.far)
 
-    def raygen_params(self, width, height, device="cpu"):
-        """(position, inv_view, inv_proj) as float32 tensors on `device`."""
+    def raygen_params(self, width, height, device="cuda"):
+        """(position, inv_view, inv_proj) as float32 tensors on `device`
+        (the GPU unless the caller asks for the CPU)."""
+        from ..scene.flatten import _device
+        device = _device(device)
         inv_view = np.linalg.inv(self.view_matrix())
         inv_proj = np.linalg.inv(self.projection_matrix(width / height))
         return tuple(torch.as_tensor(np.asarray(a, np.float32), device=device)
@@ -119,12 +116,16 @@ def generate_rays(position, inv_view, inv_proj, width, height):
         torch.arange(height, dtype=torch.float32, device=device),
         torch.arange(width, dtype=torch.float32, device=device),
         indexing="ij")
-    x_ndc = (xs + 0.5) / width * 2.0 - 1.0
-    y_ndc = (ys + 0.5) / height * 2.0 - 1.0
+    x_ndc = div(xs + 0.5, float(width)) * 2.0 - 1.0
+    y_ndc = div(ys + 0.5, float(height)) * 2.0 - 1.0
     one = torch.ones_like(x_ndc)
     ndc = torch.stack([x_ndc, y_ndc, one, one], dim=-1)
-    p_view = ndc @ inv_proj.T
+    # The two 4x4 products run in float64 and round once to float32, so
+    # every device gets the same rays: in float32, cuBLAS and the CPU's BLAS
+    # sum the four products differently and part by up to 12 ulp in the
+    # normalised direction (never TF32 either, which would move rays ~1e-3).
+    p_view = (ndc.double() @ inv_proj.double().T).float()
     p_view[..., 3] = 0.0  # a direction: drop w
-    p_world = p_view @ inv_view.T
+    p_world = (p_view.double() @ inv_view.double().T).float()
     d = normalize(p_world[..., :3])
     return position.expand_as(d), d

@@ -1,2 +1,3 @@
-"""Core math and RNG (port of `optixpathtracer_tpu/core`)."""
-from . import math, rng  # noqa: F401
+"""Core math, RNG, Fresnel and microfacet terms (port of
+`optixpathtracer_tpu/core`)."""
+from . import fresnel, math, microfacet, rng  # noqa: F401

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from .math import cos_sin, sqrt
+
 MASK32 = 0xFFFFFFFF
 
 
@@ -69,6 +71,34 @@ def pixel_seed(width, x, y, frame_id):
                _u32(frame_id, like=y), rounds=16)
 
 
+def float_hash_seed(*floats_and_seeds):
+    """Chained TEA reseed from float-derived keys, as the layered BSDF does:
+    tea(x*1000, y*1000) chained (reference `GlossyDiffuse.h:215-218,
+    417-418`). A float key is 1000 * x truncated toward zero to int32 and
+    taken modulo 2^32, as the reference's float -> unsigned conversion
+    wraps on the GPU; an integer tensor is a u32 seed."""
+    vals = []
+    for v in floats_and_seeds:
+        if v.is_floating_point():
+            vals.append((v * 1000.0).to(torch.int32).to(torch.int64) & MASK32)
+        else:
+            vals.append(_u32(v))
+    s = tea(vals[0], vals[1], rounds=16)
+    for v in vals[2:]:
+        s = tea(s, v, rounds=16)
+    return s
+
+
+def sample_uniform_disk_polar(seed):
+    """r = sqrt(u0), theta = 2 pi u1 (reference `random.h:76-84`).
+    Returns (seed, p[..., 2])."""
+    seed, u = rnd2(seed)
+    r = sqrt(u[..., 0])
+    theta = (2.0 * 3.14159265359) * u[..., 1]
+    cos, sin = cos_sin(theta)
+    return seed, torch.stack([r * cos, r * sin], dim=-1)
+
+
 def sample_uniform_disk_concentric(seed):
     """Concentric disk map (reference `LambertDiffuse.h:35-55`).
     Returns (seed, p[..., 2])."""
@@ -86,7 +116,8 @@ def sample_uniform_disk_concentric(seed):
     safe_uy = torch.where(uy == 0.0, 1.0, uy)
     theta = torch.where(use_x, pi_over_4 * (uy / safe_ux),
                         pi_over_2 - pi_over_4 * (ux / safe_uy))
-    p = torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=-1)
+    cos, sin = cos_sin(theta)
+    p = torch.stack([r * cos, r * sin], dim=-1)
     return seed, torch.where(degenerate[..., None], 0.0, p)
 
 
@@ -94,6 +125,6 @@ def sample_cosine_hemisphere(seed):
     """Cosine-weighted hemisphere via the concentric disk
     (reference `LambertDiffuse.h:57-61`). Returns (seed, w[..., 3])."""
     seed, d = sample_uniform_disk_concentric(seed)
-    z = torch.sqrt(torch.clamp(1.0 - d[..., 0] ** 2 - d[..., 1] ** 2,
+    z = sqrt(torch.clamp(1.0 - d[..., 0] ** 2 - d[..., 1] ** 2,
                                min=0.0))
     return seed, torch.stack([d[..., 0], d[..., 1], z], dim=-1)

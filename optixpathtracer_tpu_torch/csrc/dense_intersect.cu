@@ -34,7 +34,9 @@
 // by 3 broadcast 16-byte shared loads per triangle. The design spends that
 // budget only where the cull lets a warp through: whole chunks are skipped
 // per block, whole warps per chunk, and the occlusion sweep stops once
-// every ray of the block is blocked.
+// every ray of the block is blocked. Each kernel writes, per block, the
+// chunks it staged and swept and the ray-triangle tests its threads ran,
+// from which the bound is computed.
 
 #include <cuda_runtime.h>
 
@@ -141,23 +143,39 @@ __device__ __forceinline__ bool mt(const Ray& r, const float4 (*s_tri)[3],
          t < limit;
 }
 
+// Thread 0 writes the sum of v over the block to *out. Every thread calls
+// it; s_sum is one int of shared memory.
+__device__ __forceinline__ void block_sum_to(int v, int* s_sum, int* out) {
+  v = static_cast<int>(__reduce_add_sync(kFullMask, static_cast<unsigned>(v)));
+  if (threadIdx.x == 0) *s_sum = 0;
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) atomicAdd(s_sum, v);
+  __syncthreads();
+  if (threadIdx.x == 0) *out = *s_sum;
+}
+
 __global__ void __launch_bounds__(kBlock)
 dense_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
                      const float* __restrict__ tmin,
                      const float* __restrict__ tmax, int n,
                      const float* __restrict__ tris,
                      const float* __restrict__ boxes, int n_chunks,
-                     float* __restrict__ out_t, int* __restrict__ out_id) {
+                     float* __restrict__ out_t, int* __restrict__ out_id,
+                     int* __restrict__ swept, int* __restrict__ tests) {
   __shared__ float4 s_tri[kChunk][3];
+  __shared__ int s_sum;
   const int i = blockIdx.x * kBlock + threadIdx.x;
   const Ray r = load_ray(o, d, tmin, tmax, n, i);
   const bool live = r.tmax > r.tmin;  // else no t can satisfy tmin<t<tmax
   const int t_pad = n_chunks * kChunk;
   float bt = kBig;
   int bi = -1;
+  int n_swept = 0;
+  int n_tests = 0;
   for (int c = 0; c < n_chunks; ++c) {
     const bool can = live && slab(r, boxes, n_chunks, c, fminf(bt, r.tmax));
     if (!__syncthreads_or(can)) continue;
+    ++n_swept;
     stage_chunk(s_tri, tris, t_pad, c);
     __syncthreads();
     if (__any_sync(kFullMask, can)) {
@@ -168,6 +186,7 @@ dense_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
           bi = c * kChunk + k;
         }
       }
+      n_tests += kChunk;
     }
     __syncthreads();  // the next chunk overwrites s_tri
   }
@@ -175,6 +194,8 @@ dense_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
     out_t[i] = bt;
     out_id[i] = bi;
   }
+  if (threadIdx.x == 0) swept[blockIdx.x] = n_swept;
+  block_sum_to(n_tests, &s_sum, tests + blockIdx.x);
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -183,13 +204,17 @@ dense_any_kernel(const float* __restrict__ o, const float* __restrict__ d,
                  const float* __restrict__ tmax, int n,
                  const float* __restrict__ tris,
                  const float* __restrict__ boxes, int n_chunks,
-                 int* __restrict__ out_blocked) {
+                 int* __restrict__ out_blocked, int* __restrict__ swept,
+                 int* __restrict__ tests) {
   __shared__ float4 s_tri[kChunk][3];
+  __shared__ int s_sum;
   const int i = blockIdx.x * kBlock + threadIdx.x;
   const Ray r = load_ray(o, d, tmin, tmax, n, i);
   const bool live = r.tmax > r.tmin;
   const int t_pad = n_chunks * kChunk;
   bool blocked = false;
+  int n_swept = 0;
+  int n_tests = 0;
   for (int c = 0; c < n_chunks; ++c) {
     const bool open = live && !blocked;
     const bool can = open && slab(r, boxes, n_chunks, c, r.tmax);
@@ -197,17 +222,21 @@ dense_any_kernel(const float* __restrict__ o, const float* __restrict__ d,
       if (!__syncthreads_or(open)) break;  // every ray settled
       continue;
     }
+    ++n_swept;
     stage_chunk(s_tri, tris, t_pad, c);
     __syncthreads();
     if (__any_sync(kFullMask, can)) {
       for (int k = 0; k < kChunk && !blocked; ++k) {
         float t;
         blocked = mt(r, s_tri, k, r.tmax, &t);
+        ++n_tests;
       }
     }
     __syncthreads();
   }
   if (i < n) out_blocked[i] = blocked ? 1 : 0;
+  if (threadIdx.x == 0) swept[blockIdx.x] = n_swept;
+  block_sum_to(n_tests, &s_sum, tests + blockIdx.x);
 }
 
 }  // namespace
@@ -216,24 +245,28 @@ extern "C" {
 
 // Both entry points launch on `stream`, do not synchronise, and return
 // cudaGetLastError() (0 on success). o, d: [n, 3]; tmin, tmax: [n];
-// tris: [9, n_chunks * 128]; boxes: [6, n_chunks]; all float32, contiguous.
+// tris: [9, n_chunks * 128]; boxes: [6, n_chunks]; swept, tests:
+// [ceil(n / 128)] chunks swept and ray-triangle tests run per block; all
+// float32 / int32, contiguous.
 int dense_closest(const float* o, const float* d, const float* tmin,
                   const float* tmax, int n_rays, const float* tris,
                   const float* boxes, int n_chunks, float* out_t,
-                  int* out_id, void* stream) {
+                  int* out_id, int* swept, int* tests, void* stream) {
   const int grid = (n_rays + kBlock - 1) / kBlock;
   dense_closest_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      o, d, tmin, tmax, n_rays, tris, boxes, n_chunks, out_t, out_id);
+      o, d, tmin, tmax, n_rays, tris, boxes, n_chunks, out_t, out_id, swept,
+      tests);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dense_any(const float* o, const float* d, const float* tmin,
               const float* tmax, int n_rays, const float* tris,
               const float* boxes, int n_chunks, int* out_blocked,
-              void* stream) {
+              int* swept, int* tests, void* stream) {
   const int grid = (n_rays + kBlock - 1) / kBlock;
   dense_any_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      o, d, tmin, tmax, n_rays, tris, boxes, n_chunks, out_blocked);
+      o, d, tmin, tmax, n_rays, tris, boxes, n_chunks, out_blocked, swept,
+      tests);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -23,7 +23,7 @@ import torch
 from ..bsdf import dispatch
 from ..camera.camera import generate_rays
 from ..core import rng
-from ..core.math import abs_cos_theta, dot, length, length_sqr, normalize
+from ..core.math import abs_cos_theta, div, dot, length, length_sqr, normalize
 from ..intersect import intersect_any, intersect_closest
 from .surface import make_surface
 
@@ -73,7 +73,7 @@ def _nee(seed, scene, surf, beta, alive, intersect_method, active_lobes):
 
     # L = color / d^2 (`LightMethods.h:17-23`)
     radiance = lc / torch.clamp(length_sqr(to_light), min=1e-12)[..., None]
-    contrib = beta * f_val * cos_term[..., None] * radiance / p_light
+    contrib = div(beta * f_val * cos_term[..., None] * radiance, p_light)
     return seed, torch.where(visible[..., None], contrib, 0.0)
 
 

@@ -8,26 +8,32 @@ then recomputed from the detached id in a few differentiable operations
 without a backward pass through any engine.
 
 Engines by method string (the reference's strings, so a caller passes the
-same one to both packages): "brute" (oracle), "pallas" (the dense sweep:
-CUDA kernels on CUDA tensors, their plain version on the CPU). "bvh",
-"walk" and "packet" are not ported yet and raise NotImplementedError.
+same one to both packages): "brute" (oracle), "pallas" (the dense sweep),
+"walk" (the walk engine), each CUDA kernels on CUDA tensors and plain
+versions on the CPU, and "bvh" (the skip-link BVH, CPU only). "packet" is
+not ported yet and raises NotImplementedError.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core.math import cross, dot
-from . import brute, dense_kernels
+from . import brute, bvh_traverse, dense_kernels, walk_kernels
 from .types import Hit
 
 # CPU routing, as the reference routes off the TPU: below this triangle
 # count the brute oracle, above it the BVH.
 BRUTE_FORCE_MAX_TRIS = 2048
+# Card routing, the reference's TPU table (`api.py:71-76`): below this many
+# walk chunks the dense sweep, at or above it the walk engine ...
+WALK_MIN_CHUNKS = 8
+# ... and the packet engine for secondary bounces at this many chunks.
+PACKET_BOUNCE_MIN_CHUNKS = 512
 
+_ENGINES = {"brute": brute, "bvh": bvh_traverse, "pallas": dense_kernels,
+            "walk": walk_kernels}
 _NOT_PORTED = {
-    "bvh": "the bvh CPU engine (bvh_traverse) comes with the walk slice",
-    "walk": "the walk engine (walk_kernels) is the next slice",
-    "packet": "the packet engine (packet_kernels) follows the walk slice",
+    "packet": "the packet engine (packet_kernels) is the next slice",
 }
 
 
@@ -39,20 +45,20 @@ def _resolve(method: str, scene, device) -> str:
     if method != "auto":
         return method
     if torch.device(device).type == "cuda":
-        # Every scene goes to the dense kernels until the walk and packet
-        # engines are ported: every engine returns the same hits, so this
-        # is correct at any size. The crossover is measured on the H100
-        # when the walk engine lands.
+        # The reference sends bounce wavefronts of scenes with at least
+        # PACKET_BOUNCE_MIN_CHUNKS chunks to the packet engine. Until that
+        # engine is ported they take the walk engine: every engine returns
+        # the same hits, so only the speed differs.
+        if scene.walk_tris.shape[0] >= WALK_MIN_CHUNKS:
+            return "walk"
         return "pallas"
     n = scene.tri_v0.shape[0]
     return "brute" if n <= BRUTE_FORCE_MAX_TRIS else "bvh"
 
 
 def _engine(method: str):
-    if method == "pallas":
-        return dense_kernels
-    if method == "brute":
-        return brute
+    if method in _ENGINES:
+        return _ENGINES[method]
     if method in _NOT_PORTED:
         raise NotImplementedError(f"intersect method {method!r}: "
                                   f"{_NOT_PORTED[method]}")
@@ -96,8 +102,8 @@ def _bound(x, device):
 
 def intersect_closest(scene, o, d, tmin=0.0, tmax=100.0, method="auto"):
     """Closest-hit query with differentiable refinement. method in
-    {'auto', 'auto:bounce', 'brute', 'pallas'} (and the not yet ported
-    'bvh', 'walk', 'packet')."""
+    {'auto', 'auto:bounce', 'brute', 'bvh', 'pallas', 'walk'} (and the not
+    yet ported 'packet')."""
     engine = _engine(_resolve(method, scene, o.device))
     tmin = _bound(tmin, o.device)
     tmax = _bound(tmax, o.device)

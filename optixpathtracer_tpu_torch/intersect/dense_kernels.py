@@ -16,7 +16,9 @@ because its tensors lie on the CPU; on a CUDA tensor it launches the
 kernel or raises, and never falls back.
 
 `launches` on each kernel wrapper counts its launches, so a run can show
-that the render went through the kernels.
+that the render went through the kernels; `swept` and `tests` hold the
+last launch's chunks swept and ray-triangle tests run per 128-ray block
+(int32), from which the kernel's bound is computed.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from .. import _build
 from .types import Hit
 
 TRI_CHUNK = 128      # triangles per chunk == culling cluster
+BLOCK_RAYS = 128     # rays per CUDA block of the kernels
 EPS_DET = 1e-12
 BIG = 3.4e38         # miss distance of the raw closest query
 PLAIN_PAIRS = 1 << 24  # (ray, triangle) pairs per step of the plain sweep
@@ -95,10 +98,11 @@ def _rays(o, d, tmin, tmax):
 # ---------------------------------------------------------------------------
 
 def _mt_plain(o, d, tmin, limit, tri):
-    """Moller-Trumbore of rays [r] against triangle planes [9, c] in the
-    kernel's operation order. Returns (t, hit), each [r, c]."""
-    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
-    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    """Moller-Trumbore of rays [..., r] against triangle planes (nine
+    planes broadcastable to [..., 1, c]) in the kernel's operation order.
+    Returns (t, hit), each [..., r, c]."""
+    ox, oy, oz = o[..., 0:1], o[..., 1:2], o[..., 2:3]
+    dx, dy, dz = d[..., 0:1], d[..., 1:2], d[..., 2:3]
     v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tri
     pvx = dy * e2z - dz * e2y
     pvy = dz * e2x - dx * e2z
@@ -116,7 +120,7 @@ def _mt_plain(o, d, tmin, limit, tri):
     v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
     t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
     hit = (ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-           & (t > tmin[:, None]) & (t < limit[:, None]))
+           & (t > tmin[..., None]) & (t < limit[..., None]))
     return t, hit
 
 
@@ -168,9 +172,9 @@ def any_plain(tris, o, d, tmin, tmax):
 _P = ctypes.c_void_p
 _ARGTYPES = {
     "dense_closest": [_P, _P, _P, _P, ctypes.c_int, _P, _P, ctypes.c_int,
-                      _P, _P, _P],
+                      _P, _P, _P, _P, _P],
     "dense_any": [_P, _P, _P, _P, ctypes.c_int, _P, _P, ctypes.c_int,
-                  _P, _P],
+                  _P, _P, _P, _P],
 }
 
 
@@ -207,14 +211,16 @@ def closest_kernel(tris, boxes, o, d, tmin, tmax):
     r = o.shape[0]
     out_t = torch.empty(r, dtype=torch.float32, device=o.device)
     out_id = torch.empty(r, dtype=torch.int32, device=o.device)
+    counts = _count_buffer(o)
     with torch.cuda.device(o.device):
         err = _fn("dense_closest")(
             o_p, d_p, tmin_p, tmax_p, r, tris_p, boxes_p, boxes.shape[1],
-            out_t.data_ptr(), out_id.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            out_t.data_ptr(), out_id.data_ptr(), counts[0].data_ptr(),
+            counts[1].data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"dense_closest launch failed: CUDA error {err}")
     closest_kernel.launches += 1
+    closest_kernel.swept, closest_kernel.tests = counts
     return out_t, out_id
 
 
@@ -224,18 +230,30 @@ def any_kernel(tris, boxes, o, d, tmin, tmax):
         tris, boxes, o, d, tmin, tmax)
     r = o.shape[0]
     out = torch.empty(r, dtype=torch.int32, device=o.device)
+    counts = _count_buffer(o)
     with torch.cuda.device(o.device):
         err = _fn("dense_any")(
             o_p, d_p, tmin_p, tmax_p, r, tris_p, boxes_p, boxes.shape[1],
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            out.data_ptr(), counts[0].data_ptr(), counts[1].data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"dense_any launch failed: CUDA error {err}")
     any_kernel.launches += 1
+    any_kernel.swept, any_kernel.tests = counts
     return out > 0
+
+
+def _count_buffer(o):
+    """The kernels' int32 outputs per 128-ray block: row 0 the chunks swept,
+    row 1 the ray-triangle tests run."""
+    return torch.empty((2, -(-o.shape[0] // BLOCK_RAYS)), dtype=torch.int32,
+                       device=o.device)
 
 
 closest_kernel.launches = 0
 any_kernel.launches = 0
+closest_kernel.swept = any_kernel.swept = None
+closest_kernel.tests = any_kernel.tests = None
 
 
 def _require_cpu(o):

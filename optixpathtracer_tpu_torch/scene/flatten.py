@@ -165,12 +165,25 @@ class SceneData:
                 if isinstance(getattr(self, f.name), torch.Tensor)}
 
 
-def scene_from_jax(leaves: dict, device="cpu") -> SceneData:
+def _device(device) -> torch.device:
+    """The device an entry point builds on. The default, "cuda", raises
+    where there is no CUDA device rather than building on the CPU; the CPU
+    is used only when asked for."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the GPU; pass device='cpu' "
+            "to build on the CPU")
+    return device
+
+
+def scene_from_jax(leaves: dict, device="cuda") -> SceneData:
     """The port's SceneData from the leaves of a JAX-flattened scene.
 
     `leaves` maps field names to numpy arrays (for a JAX SceneData `s`:
     `{k: None if v is None else np.asarray(v) for k, v in
     s._asdict().items()}`). Values are carried across unchanged."""
+    device = _device(device)
     for k in ("opaque_scene", "cutout_sub", "tri_outer_id"):
         if leaves.get(k) is not None:
             raise NotImplementedError(
@@ -240,8 +253,10 @@ def _mat_is_cutout_capable(mat, textures) -> bool:
 
 
 def flatten_model(model: Model, lights=None, texture_res: int = TEXTURE_RES,
-                  build_bvh: bool = True, device="cpu") -> SceneData:
-    """Bake a Model + lights into a SceneData on `device`."""
+                  build_bvh: bool = True, device="cuda") -> SceneData:
+    """Bake a Model + lights into a SceneData on `device` (the GPU unless
+    the caller asks for the CPU)."""
+    device = _device(device)
     v0s, v1s, v2s, n_list, uv_list, mat_ids = [], [], [], [], [], []
     mats = []
 

@@ -5,8 +5,10 @@ jax: its package `__init__` and its camera import pull jax in).
 The code below is the reference's, line for line, so both packages build
 the same meshes: the mesh helpers, the Cornell box and the README
 material-test scene with its fitted geometry (GOLDEN_GEO, GOLDEN_FIT).
-PRESETS holds the all-diffuse scenes this slice renders; the others follow
-with the lobes, textures and cutout they need.
+PRESETS holds the presets the port renders so far: Cornell, the README
+material scenes and scene1_spheres (the conductor scene). The dragon and
+sponza stand-ins (their mesh helpers are not ported yet) and the textured
+hall come in later slices.
 """
 from __future__ import annotations
 
@@ -309,8 +311,13 @@ def scene_cornell():
 
 
 PRESETS = {
-    # reference main.cpp Scene3: the bench headline
+    # reference main.cpp Scene1 and Scene3 (the bench headline)
+    "scene1_spheres": lambda: scene_material_test("conductor"),
     "scene3_cornell": scene_cornell,
-    # the README accuracy scene (scenes/config1_diffuse.json)
+    # the README material scenes (scenes/config*.json)
+    "conductor": lambda: scene_material_test("conductor"),
     "diffuse": lambda: scene_material_test("diffuse"),
+    "dielectric": lambda: scene_material_test("dielectric"),
+    "dielectric20": lambda: scene_material_test("dielectric20"),
+    "layered": lambda: scene_material_test("layered"),
 }

@@ -97,6 +97,8 @@ SLICE_MODULES = [
     "optixpathtracer_tpu_torch.native",
     "optixpathtracer_tpu_torch.core.math",
     "optixpathtracer_tpu_torch.core.rng",
+    "optixpathtracer_tpu_torch.core.fresnel",
+    "optixpathtracer_tpu_torch.core.microfacet",
     "optixpathtracer_tpu_torch.camera.camera",
     "optixpathtracer_tpu_torch.scene.types",
     "optixpathtracer_tpu_torch.scene.bvh",
@@ -105,12 +107,18 @@ SLICE_MODULES = [
     "optixpathtracer_tpu_torch.intersect.types",
     "optixpathtracer_tpu_torch.intersect.brute",
     "optixpathtracer_tpu_torch.intersect.dense_kernels",
+    "optixpathtracer_tpu_torch.intersect.walk_kernels",
+    "optixpathtracer_tpu_torch.intersect.bvh_traverse",
     "optixpathtracer_tpu_torch.intersect.api",
     "optixpathtracer_tpu_torch.bsdf.base",
     "optixpathtracer_tpu_torch.bsdf.diffuse",
+    "optixpathtracer_tpu_torch.bsdf.conductor",
+    "optixpathtracer_tpu_torch.bsdf.dielectric",
+    "optixpathtracer_tpu_torch.bsdf.glossy_diffuse",
     "optixpathtracer_tpu_torch.bsdf.dispatch",
     "optixpathtracer_tpu_torch.integrate.surface",
     "optixpathtracer_tpu_torch.integrate.path",
+    "chip_smoke",
 ]
 
 
@@ -147,12 +155,56 @@ def test_generate_rays_matches_cornell_camera():
     _, tcam, _ = PRESETS["scene3_cornell"]()
     w, h = 32, 24
     jparams = jcam.raygen_params(w, h)
-    tparams = tcam.raygen_params(w, h)
+    tparams = tcam.raygen_params(w, h, device="cpu")
     for a, b in zip(jparams, tparams):
         assert b.dtype == torch.float32
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
     jo, jd = jgen(*jparams, w, h)
     to, td = tgen(*tparams, w, h)
     assert td.shape == (h, w, 3)
-    np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=0, atol=1e-6)
-    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0, atol=1e-6)
+    # bit-identical: the port rounds the 4x4 products and the square root
+    # of the normalisation exactly as XLA does (core.math.sqrt)
+    np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+
+
+def test_entry_points_default_to_the_gpu(monkeypatch):
+    """flatten_model, scene_from_jax and Camera.raygen_params build on the
+    GPU unless asked for the CPU: without CUDA the default raises instead
+    of quietly returning CPU tensors."""
+    from optixpathtracer_tpu_torch.scene import flatten_model, scene_from_jax
+    from optixpathtracer_tpu_torch.scene.procedural import PRESETS
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model, cam, lights = PRESETS["scene3_cornell"]()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        flatten_model(model, lights)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cam.raygen_params(8, 8)
+    scene = flatten_model(model, lights, device="cpu")
+    assert scene.tri_v0.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        scene_from_jax({k: v.numpy() for k, v in scene.leaves().items()})
+    params = cam.raygen_params(8, 8, device="cpu")
+    assert all(p.device.type == "cpu" for p in params)
+
+
+def test_device_independent_rounding():
+    """core.math's sqrt, cos_sin and exp give the correctly rounded float32
+    (numpy's float64 result rounded once), so the CPU and the GPU agree:
+    PyTorch's vectorised CPU torch.sqrt alone is one ulp off on some
+    arguments, and float32 cos/sin/exp differ between libms."""
+    from optixpathtracer_tpu_torch.core import math as tmath
+
+    r = np.random.default_rng(5)
+    x = r.uniform(0.0, 10.0, 200_000).astype(np.float32)
+    theta = (r.uniform(0.0, 1.0, 200_000) * 2 * np.pi).astype(np.float32)
+    np.testing.assert_array_equal(tmath.sqrt(torch.from_numpy(x)).numpy(),
+                                  np.sqrt(x))
+    cos, sin = tmath.cos_sin(torch.from_numpy(theta))
+    t64 = theta.astype(np.float64)
+    np.testing.assert_array_equal(cos.numpy(), np.cos(t64).astype(np.float32))
+    np.testing.assert_array_equal(sin.numpy(), np.sin(t64).astype(np.float32))
+    np.testing.assert_array_equal(
+        tmath.exp(torch.from_numpy(-x)).numpy(),
+        np.exp(-x.astype(np.float64)).astype(np.float32))

@@ -47,7 +47,7 @@ def scenes_and_rays():
     d = np.concatenate([d, d2])
     leaves = {k: None if v is None else np.asarray(v)
               for k, v in jscene._asdict().items()}
-    return jscene, scene_from_jax(leaves), o, d
+    return jscene, scene_from_jax(leaves, device="cpu"), o, d
 
 
 def _jax_closest(jscene, o, d, tmax):
@@ -184,7 +184,7 @@ def test_api_routes_and_detaches(scenes_and_rays):
     assert api._resolve("brute", scene, "cuda") == "brute"
     with pytest.raises(NotImplementedError):
         api.intersect_closest(scene, torch.from_numpy(o), torch.from_numpy(d),
-                              method="bvh")
+                              method="packet")
     # gradients reach ray origins through _refine, not through the engine
     ot = torch.from_numpy(o).requires_grad_(True)
     got = api.intersect_closest(scene, ot, torch.from_numpy(d), 0.0, 100.0,

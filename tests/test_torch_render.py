@@ -57,8 +57,8 @@ def jax_render_op_by_op(*args, **kwargs):
 def cornell():
     model, camera, lights = PRESETS["scene3_cornell"]()
     jmodel, jcamera, jlights = JPRESETS["scene3_cornell"]()
-    return flatten_model(model, lights), camera, jflatten(jmodel, jlights), \
-        jcamera
+    return (flatten_model(model, lights, device="cpu"), camera,
+            jflatten(jmodel, jlights), jcamera)
 
 
 @pytest.fixture(scope="module")
@@ -112,7 +112,7 @@ def test_progressive_resume_and_callback(cornell):
 
 def test_unported_options_raise(cornell):
     scene, camera, _, _ = cornell
-    params = camera.raygen_params(8, 8)
+    params = camera.raygen_params(8, 8, device="cpu")
     for kw in ({"sort_rays": True}, {"material_sort": 2},
                {"compact_shading": 2}, {"debug_pixel": 3},
                {"use_alpha_cutout": True}):

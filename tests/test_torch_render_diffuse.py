@@ -32,7 +32,8 @@ def test_diffuse_scene_matches_jax():
         want = np.asarray(jrender(jflatten(jmodel, jlights), jcamera, 16, 16,
                                   spp=1, max_bounces=3,
                                   intersect_method="brute"))
-    img = path.render(flatten_model(model, lights), camera, 16, 16, spp=1,
-                      max_bounces=3, intersect_method="pallas").numpy()
+    img = path.render(flatten_model(model, lights, device="cpu"), camera,
+                      16, 16, spp=1, max_bounces=3,
+                      intersect_method="pallas").numpy()
     assert img.mean() > 0.01
     assert_images_match(img, want)

@@ -1,12 +1,15 @@
 """Port parity of the scene layer: the port's flatten_model, and
 scene_from_jax applied to the JAX flatten's leaves, each give leaves
-exactly equal to the JAX package's flatten_model."""
+exactly equal to the JAX package's flatten_model (walk_tris, walk_node_box,
+walk_node_link and walk_sub_box included), on Cornell and on two
+multi-chunk README material scenes, `diffuse` and `layered`."""
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from optixpathtracer_tpu.scene import flatten as jflatten_mod
 from optixpathtracer_tpu.scene import flatten_model as jflatten
 from optixpathtracer_tpu.scene.procedural import \
     scene_material_test as jmaterial_test
@@ -21,9 +24,9 @@ from optixpathtracer_tpu_torch.scene.procedural import (PRESETS,
 
 torch.set_num_threads(1)
 
-# The `diffuse` scene with its spheres cut from (12, 24) to (6, 12) segments
-# (~4.3k instead of ~19k triangles) to keep the CPU test fast; the full
-# preset runs in chip_smoke.py.
+# The README material scenes with their spheres cut from (12, 24) to (6, 12)
+# segments (~4.3k instead of ~19k triangles, 34 walk chunks) to keep the
+# CPU test fast; the full presets run in chip_smoke.py.
 DIFFUSE_SEGMENTS = (6, 12)
 
 SCENES = {
@@ -32,6 +35,10 @@ SCENES = {
     "diffuse_6x12": (lambda: jmaterial_test("diffuse",
                                             segments=DIFFUSE_SEGMENTS),
                      lambda: scene_material_test("diffuse",
+                                                 segments=DIFFUSE_SEGMENTS)),
+    "layered_6x12": (lambda: jmaterial_test("layered",
+                                            segments=DIFFUSE_SEGMENTS),
+                     lambda: scene_material_test("layered",
                                                  segments=DIFFUSE_SEGMENTS)),
 }
 
@@ -58,18 +65,24 @@ def assert_leaves_equal(scene, want):
 def case(request):
     jbuild, tbuild = SCENES[request.param]
     model, _, lights = jbuild()
-    return request.param, jax_leaves(jflatten(model, lights)), tbuild
+    jscene = jflatten(model, lights)
+    facts = (jflatten_mod.scene_active_lobes(jscene),
+             jflatten_mod.scene_uses_textures(jscene),
+             jflatten_mod.scene_flat_shading(jscene))
+    return request.param, jax_leaves(jscene), tbuild, facts
 
 
 def test_flatten_model_leaves_equal(case):
-    _, want, tbuild = case
+    _, want, tbuild, _ = case
     model, _, lights = tbuild()
-    assert_leaves_equal(flatten_model(model, lights), want)
+    assert_leaves_equal(flatten_model(model, lights, device="cpu"), want)
 
 
 def test_scene_from_jax_leaves_equal(case):
-    _, want, _ = case
-    scene = scene_from_jax(want)
+    name, want, _, _ = case
+    if name != "scene3_cornell":
+        assert want["walk_tris"].shape[0] >= 8  # multi-chunk
+    scene = scene_from_jax(want, device="cpu")
     assert_leaves_equal(scene, want)
     # .to() copies every tensor and starts an empty cache
     scene.cache["x"] = 1
@@ -79,8 +92,11 @@ def test_scene_from_jax_leaves_equal(case):
 
 
 def test_scene_static_facts(case):
-    name, want, _ = case
-    scene = scene_from_jax(want)
-    assert scene_active_lobes(scene) == (0,)  # DIFFUSE only
-    assert scene_uses_textures(scene) is False
-    assert scene_flat_shading(scene) is (name == "scene3_cornell")
+    name, want, _, facts = case
+    scene = scene_from_jax(want, device="cpu")
+    got = (scene_active_lobes(scene), scene_uses_textures(scene),
+           scene_flat_shading(scene))
+    assert got == facts
+    assert got[0] == ((3,) if name == "layered_6x12" else (0,))
+    assert got[1] is False
+    assert got[2] is (name == "scene3_cornell")
