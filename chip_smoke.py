@@ -5,53 +5,64 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ (one nvcc per source, all
-started together), then runs three cells at 1920x1080, each with its own
+started together), then runs four cells at 1920x1080, each with its own
 path: scene3_cornell (16 spp, 2 bounces; 1 chunk, so the dense kernels),
 `diffuse` (4 spp, 3 bounces, scenes/config1_diffuse.json; 149 chunks, so
-the walk kernels) and `layered` (2 spp, 2 bounces, scenes/
-config4_layered.json; the walk kernels and the glossy-diffuse lobe).
+the walk kernels), `layered` (2 spp, 2 bounces, scenes/
+config4_layered.json; the walk kernels and the glossy-diffuse lobe) and
+`hall` (2 spp, 2 bounces, bench.py's hall_fwd at 1080p: 338,270 textured
+triangles with alpha-cutout foliage, every lobe; its opaque sub-scene's
+1,322 chunks of 256 send primaries and bounce-0 shadow rays to the walk
+kernels and bounce-1 rays to the packet kernels, and every cutout chain
+runs the dense closest kernel over the 40-triangle cutout sub-scene).
 
 1. Kernel phase, on the wavefronts of a real trace_paths frame of each cell
    (the 1080p primary wavefront, then each bounce's closest and NEE shadow
-   rays). Dense kernels on Cornell and `diffuse`; walk kernels on
-   `diffuse` and `layered`, and on `diffuse` re-flattened at 256
-   triangles a chunk (MAX_WALK_CHUNKS = 100: 75 chunks) for the primary
+   rays). Dense kernels on Cornell, `diffuse` and hall's cutout chains;
+   walk kernels on `diffuse`, `layered` and hall, and on `diffuse`
+   re-flattened at 256 triangles a chunk (MAX_WALK_CHUNKS = 100: 75
+   chunks) for the primary wavefront; packet kernels on every hall
    wavefront. Each kernel against its plain PyTorch version on the same
-   inputs: candidate entries bit-identical, hit masks, ids and blocked
-   flags identical (a knife-edge tie may differ only where both t agree
-   within 1e-5 relative, on at most 1e-5 of the rays). Bounce wavefronts
-   are checked on a fixed 2^18-ray subsample (whole ray blocks for the
-   walk sweeps), so the plain sweeps stay short. Kernels are timed with
-   CUDA events after a warm-up at every wavefront, the walk engine's plain
-   torch steps too (coherence sort, candidate sort); `diffuse` gets a
-   dense-vs-walk table per wavefront and a 256- vs 1024-ray block table.
+   inputs: candidate entries and packet words bit-identical, hit masks,
+   ids and blocked flags identical (a knife-edge tie may differ only where
+   both t agree within 1e-5 relative, on at most 1e-5 of the rays). Bounce
+   wavefronts (every hall wavefront) are checked on a fixed 2^18-ray
+   subsample (whole ray blocks for the walk and packet sweeps), so the
+   plain sweeps stay short. Kernels are timed with CUDA events after a
+   warm-up at every wavefront, the engines' plain torch steps too
+   (coherence sort, candidate sort); `diffuse` gets a dense-vs-walk table
+   per wavefront and a 256- vs 1024-ray block table, hall a walk-vs-packet
+   table per wavefront with the packet engine at 256- and 1024-ray blocks.
    Each kernel's bound is computed from this run's inputs: the
-   ray-triangle tests the sweeps report running (per block) times the FP32
-   operations of one test, over 132 SMs x 128 lanes at the card's max SM
-   clock, or the bytes over 3.35 TB/s, whichever is larger.
+   ray-triangle tests the sweeps report running (and the packet kernels'
+   ray-subchunk slab tests) times the FP32 operations of one test, over
+   132 SMs x 128 lanes at the card's max SM clock, or the bytes over
+   3.35 TB/s, whichever is larger.
 2. Path phase. `render` (method "auto") of each cell at 1920x1080 with
    every launch counter zeroed just before and read just after; each
    cell's kernels must have launched and the image must be finite and
    non-negative. Mrays/s with bench.py's accounting (pixels x spp x
    bounces x 2 / seconds). Then torch.profiler over one 1-spp frame of the
-   two walk cells.
+   walk cells and hall.
 3. Images. Each cell, and `conductor` and `dielectric` (so every lobe runs
    on the card), at 256x256, 2 spp, through the kernels and again through
-   the plain versions; and Cornell at 48x48 on the GPU against the CPU (the
+   the plain versions; and Cornell and hall_small (20,606 triangles,
+   cutout live, method "packet") at 48x48 on the GPU against the CPU (the
    path the tests hold to the JAX package): by the engine-golden criterion
    (> 99.5% of pixels within atol 1e-5 / rtol 1e-4, mean within rtol
    1e-3). The GPU and CPU frames are also compared stage by stage (camera
    rays, hits, surfaces, NEE, BSDF samples, throughput) and the first
-   stage that differs is printed, for Cornell and for `layered` (the
-   latter printed, not gated).
+   stage that differs is printed, for Cornell, hall_small and `layered`
+   (the last printed, not gated).
 
 Any failed check raises, so the process exits non-zero. The last lines of
-standard output are one JSON object describing the kernels, the card
-(nvidia-smi name and power limit) and the result line {"ok": true,
-"device": {...}}. It exits non-zero, printing no result, without a CUDA
-device or without the rest of the repository.
+standard output are JSON objects describing the engine tables and the
+kernels, the card (nvidia-smi name and power limit) and the result line
+{"ok": true, "device": {...}}. It exits non-zero, printing no result,
+without a CUDA device or without the rest of the repository.
 """
 import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -62,11 +73,19 @@ CELLS = (
     ("scene3_cornell", 16, 2),  # bench.py headline scene: dense kernels
     ("diffuse", 4, 3),          # scenes/config1_diffuse.json: walk kernels
     ("layered", 2, 2),          # scenes/config4_layered.json: walk + glossy
+    ("hall", 2, 2),             # bench.py hall_fwd: walk, packet, dense
 )
+WALK = ("walk_candidates", "walk_closest", "walk_any")
+CELL_KERNELS = {  # the kernels each cell's render must launch
+    "scene3_cornell": ("dense_closest", "dense_any"),
+    "diffuse": WALK, "layered": WALK,
+    # hall's cutout chains are closest-hit queries, so no dense_any
+    "hall": WALK + ("packet_closest", "packet_any", "dense_closest"),
+}
 DENSE_SCENES = ("scene3_cornell", "diffuse")
 WALK_SCENES = ("diffuse", "layered")
 IMAGE_SCENES = ("scene3_cornell", "diffuse", "layered", "conductor",
-                "dielectric")
+                "dielectric", "hall")
 WIDTH, HEIGHT = 1920, 1080
 SMALL = 256              # kernels-vs-plain renders: SMALL x SMALL, 2 spp
 SUBSAMPLE = 1 << 18      # bounce rays compared against the plain versions
@@ -80,6 +99,9 @@ WALK_CHUNKS_256 = 100    # MAX_WALK_CHUNKS giving `diffuse` 256-tri chunks
 # min/max + 3 compares, then its live test, max(t_near, 0) and the min).
 MT_OPS = 54
 CAND_OPS = 28
+# the packet kernels' subchunk slab test (sub_slab(): per axis 2 sub, 2
+# mul, 2 min/max and the running max and min, then 4 compares)
+SLAB_OPS = 28
 SMS, FP32_LANES = 132, 128       # H100 SXM
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 
@@ -124,11 +146,14 @@ def cuda_time_ms(fn, reps):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route every kernel wrapper (dense and walk) to its plain version."""
+    """Route every kernel wrapper (dense, walk and packet) to its plain
+    version."""
     from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
+    from optixpathtracer_tpu_torch.intersect import packet_kernels as pk
     from optixpathtracer_tpu_torch.intersect import walk_kernels as wk
     saved = (dk.closest_kernel, dk.any_kernel, wk.candidates_kernel,
-             wk.closest_kernel, wk.any_kernel)
+             wk.closest_kernel, wk.any_kernel, pk.packet_closest_kernel,
+             pk.packet_any_kernel)
     dk.closest_kernel = lambda tris, boxes, *rays: dk.closest_plain(tris,
                                                                     *rays)
     dk.any_kernel = lambda tris, boxes, *rays: dk.any_plain(tris, *rays)
@@ -137,42 +162,53 @@ def plain_kernels():
                          wk.closest_plain(tris, cand, count, *rays))
     wk.any_kernel = (lambda tris, boxes, cand, count, *rays:
                      wk.any_plain(tris, cand, count, *rays))
+    pk.packet_closest_kernel = functools.partial(pk.plain_launch,
+                                                 pk.packet_closest_plain)
+    pk.packet_any_kernel = functools.partial(pk.plain_launch,
+                                             pk.packet_any_plain)
     try:
         yield
     finally:
         (dk.closest_kernel, dk.any_kernel, wk.candidates_kernel,
-         wk.closest_kernel, wk.any_kernel) = saved
+         wk.closest_kernel, wk.any_kernel, pk.packet_closest_kernel,
+         pk.packet_any_kernel) = saved
 
 
 def kernel_wrappers():
     """{name: wrapper} of every ported kernel."""
     from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
+    from optixpathtracer_tpu_torch.intersect import packet_kernels as pk
     from optixpathtracer_tpu_torch.intersect import walk_kernels as wk
     return {"dense_closest": dk.closest_kernel, "dense_any": dk.any_kernel,
             "walk_candidates": wk.candidates_kernel,
-            "walk_closest": wk.closest_kernel, "walk_any": wk.any_kernel}
+            "walk_closest": wk.closest_kernel, "walk_any": wk.any_kernel,
+            "packet_closest": pk.packet_closest_kernel,
+            "packet_any": pk.packet_any_kernel}
 
 
 @contextlib.contextmanager
 def recorded_queries(path):
-    """Record the (o, d, tmin, tmax) of every closest and shadow query that
-    trace_paths makes."""
+    """Record the (kind, scene, o, d, tmin, tmax) of every closest and
+    occlusion query that trace_paths makes, the cutout chains' included."""
+    from optixpathtracer_tpu_torch.integrate import cutout
     calls = []
-    saved = path.intersect_closest, path.intersect_any
+    saved = [(m, m.intersect_closest, m.intersect_any)
+             for m in (path, cutout)]
 
-    def closest(scene, o, d, tmin, tmax, method):
-        calls.append(("closest", o, d, tmin, tmax))
-        return saved[0](scene, o, d, tmin, tmax, method=method)
+    def recording(kind, query):
+        def run(scene, o, d, tmin, tmax, method):
+            calls.append((kind, scene, o, d, tmin, tmax))
+            return query(scene, o, d, tmin, tmax, method=method)
+        return run
 
-    def any_hit(scene, o, d, tmin, tmax, method):
-        calls.append(("any", o, d, tmin, tmax))
-        return saved[1](scene, o, d, tmin, tmax, method=method)
-
-    path.intersect_closest, path.intersect_any = closest, any_hit
+    for m, closest, any_hit in saved:
+        m.intersect_closest = recording("closest", closest)
+        m.intersect_any = recording("any", any_hit)
     try:
         yield calls
     finally:
-        path.intersect_closest, path.intersect_any = saved
+        for m, closest, any_hit in saved:
+            m.intersect_closest, m.intersect_any = closest, any_hit
 
 
 def compare_closest(kernel, plain, what):
@@ -223,16 +259,29 @@ class Card:
             (t_bytes, "bytes")
 
 
+def scene_flags(scene):
+    """The static shading options `render` derives from a scene."""
+    from optixpathtracer_tpu_torch.integrate.cutout import \
+        scene_uses_alpha_cutout
+    from optixpathtracer_tpu_torch.scene.flatten import (scene_active_lobes,
+                                                         scene_flat_shading,
+                                                         scene_uses_textures)
+    return {"active_lobes": scene_active_lobes(scene),
+            "use_textures": scene_uses_textures(scene),
+            "use_alpha_cutout": scene_uses_alpha_cutout(scene),
+            "flat_shading": scene_flat_shading(scene)}
+
+
 def frame_waves(scene, camera, bounces, dev):
-    """The primary wavefront and the (o, d, tmin, tmax) of every closest and
-    shadow query of one real trace_paths frame ("auto" routing)."""
+    """The (o, d, tmin, tmax) of every closest and shadow query of one real
+    trace_paths frame ("auto" routing) on the scene the engines sweep (the
+    opaque sub-scene of a cutout scene), and of the first query of each
+    cutout chain on the cutout sub-scene: (closest, shadow, chains)."""
     import torch
     from optixpathtracer_tpu_torch.camera.camera import generate_rays
     from optixpathtracer_tpu_torch.core import rng
     from optixpathtracer_tpu_torch.integrate import path
     from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
-    from optixpathtracer_tpu_torch.scene.flatten import (scene_active_lobes,
-                                                         scene_flat_shading)
     o, d = generate_rays(*camera.raygen_params(WIDTH, HEIGHT, dev), WIDTH,
                          HEIGHT)
     o = o.reshape(-1, 3).contiguous()
@@ -242,14 +291,23 @@ def frame_waves(scene, camera, bounces, dev):
     seed = rng.pixel_seed(WIDTH, xs.reshape(-1), ys.reshape(-1), 0)
     with torch.no_grad(), recorded_queries(path) as calls:
         path.trace_paths(scene, o, d, seed, bounces, "auto",
-                         active_lobes=scene_active_lobes(scene),
-                         use_textures=False,
-                         flat_shading=scene_flat_shading(scene))
-    kinds = [c[0] for c in calls]
-    assert kinds == ["closest", "any"] * bounces, kinds
-    closest = [dk._rays(*c[1:]) for c in calls[0::2]]
-    shadow = [dk._rays(*c[1:]) for c in calls[1::2]]
-    return closest, shadow
+                         **scene_flags(scene))
+    main = scene if scene.opaque_scene is None else scene.opaque_scene
+    ours = [c for c in calls if c[1] is main]
+    assert [c[0] for c in ours] == ["closest", "any"] * bounces
+    closest = [dk._rays(*c[2:]) for c in ours if c[0] == "closest"]
+    shadow = [dk._rays(*c[2:]) for c in ours if c[0] == "any"]
+    # each chain follows the main-scene query of its kind
+    chains, last = {"closest": [], "any": []}, None
+    for c in calls:
+        if c[1] is main:
+            last = c[0]
+        elif c[1] is scene.cutout_sub and last is not None:
+            chains[last].append(dk._rays(*c[2:]))
+            last = None
+    assert len(chains["closest"]) == len(chains["any"]) == \
+        (bounces if scene.cutout_sub is not None else 0)
+    return closest, shadow, chains
 
 
 def subsample(r, dev):
@@ -326,7 +384,7 @@ def walk_prepare(scene, rays, block_rays):
 
 def walk_block_rays(srays, cand, count, block_rays, n_sub):
     """A fixed subset of whole ray blocks (about n_sub rays): the rays,
-    their ray indices and their candidate rows."""
+    their ray indices, their candidate rows and the blocks' indices."""
     import torch
     nb = cand.shape[0]
     keep = nb if nb * block_rays <= n_sub else n_sub // block_rays
@@ -337,7 +395,7 @@ def walk_block_rays(srays, cand, count, block_rays, n_sub):
         block_rays, device=cand.device)).reshape(-1)
     idx = idx[idx < srays[0].shape[0]]
     return (tuple(x[idx].contiguous() for x in srays), idx,
-            cand[blocks].contiguous(), count[blocks].contiguous())
+            cand[blocks].contiguous(), count[blocks].contiguous(), blocks)
 
 
 def walk_check(name, label, scene, rays, kind, n_sub=None):
@@ -362,15 +420,15 @@ def walk_check(name, label, scene, rays, kind, n_sub=None):
     if kind == "closest":
         kt, ki = wk.closest_kernel(tris, boxes, cand, tnear, count, *srays,
                                    block)
-        sub, idx, scand, scount = walk_block_rays(srays, cand, count, block,
-                                                  n_sub or srays[0].shape[0])
+        sub, idx, scand, scount, _ = walk_block_rays(
+            srays, cand, count, block, n_sub or srays[0].shape[0])
         pt, pi = wk.closest_plain(tris, scand, scount, *sub, block)
         torch.cuda.synchronize()
         return compare_closest((kt[idx], ki[idx]), (pt, pi),
                                f"{name} walk_closest {label}")
     kb = wk.any_kernel(tris, boxes, cand, count, *srays, block)
-    sub, idx, scand, scount = walk_block_rays(srays, cand, count, block,
-                                              n_sub or srays[0].shape[0])
+    sub, idx, scand, scount, _ = walk_block_rays(srays, cand, count, block,
+                                                 n_sub or srays[0].shape[0])
     pb = wk.any_plain(tris, scand, scount, *sub, block)
     torch.cuda.synchronize()
     return compare_any(kb[idx], pb, f"{name} walk_any {label}")
@@ -410,7 +468,8 @@ def walk_times(scene, rays, kind, block_rays, reps=10):
     return out
 
 
-def walk_phase(name, scene, waves, card, stats, dense_table=False):
+def walk_phase(name, scene, waves, card, stats, dense_table=False,
+               primary_sub=None):
     import torch
     from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
     from optixpathtracer_tpu_torch.intersect import walk_kernels as wk
@@ -419,9 +478,9 @@ def walk_phase(name, scene, waves, card, stats, dense_table=False):
     r = primary[0].shape[0]
     errs = {"walk_candidates": [0.0], "walk_closest": [], "walk_any": []}
     errs["walk_closest"].append(walk_check(name, "primary", scene, primary,
-                                           "closest"))
+                                           "closest", primary_sub))
     errs["walk_any"].append(walk_check(name, "primary", scene, primary,
-                                       "any"))
+                                       "any", primary_sub))
     for b, w in enumerate(closest[1:], start=1):
         errs["walk_closest"].append(walk_check(name, f"bounce-{b}", scene, w,
                                                "closest", SUBSAMPLE))
@@ -515,6 +574,139 @@ def walk_phase(name, scene, waves, card, stats, dense_table=False):
         stats[(name, "block_compare")] = blocks
 
 
+# ---------------------------------------------------------------------------
+# Packet kernels
+# ---------------------------------------------------------------------------
+
+def packet_check(name, label, scene, rays, kind):
+    """One packet kernel against the plain words and sweep on whole blocks
+    (about SUBSAMPLE rays) of one query: words bit-identical, then ids or
+    blocked flags. Returns the max |dt|."""
+    import torch
+    from optixpathtracer_tpu_torch.intersect import packet_kernels as pk
+    block = pk.BLOCK_RAYS
+    srays, _, _, (cand, tnear, count) = walk_prepare(scene, rays, block)
+    kernel = (pk.packet_closest_kernel if kind == "closest" else
+              pk.packet_any_kernel)
+    got = kernel(scene.walk_tris, scene.walk_sub_box, cand, tnear, count,
+                 *srays, block, with_words=True)
+    sub, idx, scand, _, blocks = walk_block_rays(srays, cand, count, block,
+                                                 SUBSAMPLE)
+    stnear = tnear[blocks].contiguous()
+    words = pk.packet_words_plain(scene.walk_sub_box, scand, stnear, *sub,
+                                  scene.walk_chunk, block)[0]
+    torch.cuda.synchronize()
+    if not torch.equal(kernel.words[blocks], words):
+        n = int((kernel.words[blocks] != words).sum())
+        raise AssertionError(f"{name} packet words {label}: {n} words "
+                             f"differ")
+    bits = sum(int(((words >> b) & 1).sum()) for b in range(32))
+    log(f"  {name} packet words {label}: {words.numel()} words identical, "
+        f"mean {bits / (words.shape[0] * words.shape[1]):.1f} subchunks a "
+        f"packet of {words.shape[2] * 32}")
+    what = f"{name} packet_{kind} {label}"
+    if kind == "closest":
+        pt, pi = pk.packet_closest_plain(scene.walk_tris, scand, words, *sub,
+                                         block)
+        return compare_closest((got[0][idx], got[1][idx]), (pt, pi), what)
+    pb = pk.packet_any_plain(scene.walk_tris, scand, words, *sub, block)
+    return compare_any(got[idx], pb, what)
+
+
+def packet_times(scene, rays, kind, block_rays, reps=10):
+    """ms of each step of one packet query (coherence sort, candidates,
+    candidate sort, packet sweep) and the sweep's counts."""
+    from optixpathtracer_tpu_torch.intersect import packet_kernels as pk
+    from optixpathtracer_tpu_torch.intersect import walk_kernels as wk
+    srays, boxes, entry, (cand, tnear, count) = walk_prepare(scene, rays,
+                                                             block_rays)
+    kernel = (pk.packet_closest_kernel if kind == "closest" else
+              pk.packet_any_kernel)
+
+    def sweep():
+        return kernel(scene.walk_tris, scene.walk_sub_box, cand, tnear,
+                      count, *srays, block_rays)
+
+    def perm():
+        p = wk._coherence_perm(scene, rays[0], rays[1])
+        return [x[p].contiguous() for x in rays]
+
+    out = {"perm": cuda_time_ms(perm, reps),
+           "candidates": cuda_time_ms(
+               lambda: wk.candidates_kernel(boxes, *srays, block_rays), reps),
+           "sort": cuda_time_ms(lambda: wk.sort_candidates(entry), reps),
+           "sweep": cuda_time_ms(sweep, reps)}
+    sweep()
+    out.update(tests=int(kernel.tests.sum()), slabs=int(kernel.slabs.sum()),
+               swept=int(kernel.swept.sum()),
+               total=out["perm"] + out["candidates"] + out["sort"]
+               + out["sweep"])
+    return out
+
+
+def packet_phase(name, scene, waves, card, stats):
+    """The packet kernels on every wavefront of the frame: checks, times at
+    256- and 1024-ray blocks, the walk-vs-packet table, and the kernels'
+    numbers at the bounce-1 wavefront, where `auto` runs them."""
+    from optixpathtracer_tpu_torch.intersect import packet_kernels as pk
+    closest, shadow = waves
+    kinds = {"closest": closest, "any": shadow}
+    errs = {"packet_closest": [], "packet_any": []}
+    for kind, waves_k in kinds.items():
+        for b, w in enumerate(waves_k):
+            label = f"bounce-{b}" + (" shadow" if kind == "any" else "")
+            errs[f"packet_{kind}"].append(
+                packet_check(name, label, scene, w, kind))
+    per = {(kind, b_rays): [packet_times(scene, w, kind, b_rays)
+                            for w in waves_k]
+           for kind, waves_k in kinds.items() for b_rays in BLOCK_COMPARE}
+    walk_total = stats[(name, "walk_closest")]["walk_total_ms"]
+    rows = []
+    log(f"  {name} walk vs packet per wavefront (ms; each = perm + "
+        f"candidates + sort + sweep; walk at block {pk.BLOCK_RAYS}):")
+    for kind, waves_k in kinds.items():
+        for b in range(len(waves_k)):
+            p256, p1024 = (per[(kind, br)][b] for br in BLOCK_COMPARE)
+            walk = walk_total[kind][b]
+            rows.append({"kind": kind, "bounce": b, "walk_ms": walk,
+                         "packet_ms": p256["total"],
+                         "packet_sweep_ms": p256["sweep"],
+                         "packet_1024_ms": p1024["total"],
+                         "packet_1024_sweep_ms": p1024["sweep"]})
+            log(f"    {kind} bounce-{b}: walk {walk:.3f}, packet "
+                f"{p256['total']:.3f} (sweep {p256['sweep']:.3f}; block "
+                f"1024: {p1024['total']:.3f}, sweep {p1024['sweep']:.3f}) "
+                f"-> walk / packet {walk / p256['total']:.2f}x")
+    stats[(name, "walk_vs_packet")] = rows
+    for kind in kinds:
+        kname = f"packet_{kind}"
+        t = per[(kind, pk.BLOCK_RAYS)][-1]  # the bounce-1 wavefront
+        srays, _, _, (cand, tnear, count) = walk_prepare(
+            scene, kinds[kind][-1], pk.BLOCK_RAYS)
+        sweep = (pk.packet_closest_plain if kind == "closest" else
+                 pk.packet_any_plain)
+        plain_ms, _ = cuda_time_once(lambda: pk.plain_launch(
+            sweep, scene.walk_tris, scene.walk_sub_box, cand, tnear, count,
+            *srays, pk.BLOCK_RAYS))
+        r, nb = srays[0].shape[0], cand.shape[0]
+        n_bytes = (r * (40 if kind == "closest" else 36)
+                   + nb * cand.shape[1] * 8 + nb * 4
+                   + scene.walk_sub_box.numel() * 4
+                   + scene.walk_tris.numel() * 4)
+        bound_ms, bound_by = card.bound(
+            t["tests"] * MT_OPS + t["slabs"] * SLAB_OPS, n_bytes)
+        log(f"  {name} {kname}: kernel {t['sweep']:.3f} ms, plain "
+            f"{plain_ms:.1f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
+            f"{t['tests']:.4g} triangle tests, {t['slabs']:.4g} slab tests,"
+            f" {t['swept']} subchunks swept) at the {r}-ray bounce-1 "
+            f"wavefront (block {pk.BLOCK_RAYS})")
+        stats[(name, kname)] = {
+            "max_abs_err": max(errs[kname]), "ms": t["sweep"],
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bounce_ms": [x["sweep"] for x in per[(kind, pk.BLOCK_RAYS)]],
+            "tests": t["tests"], "slabs": t["slabs"]}
+
+
 def chunk256_phase(model, lights, camera, dev, stats):
     from optixpathtracer_tpu_torch.scene import flatten as flatten_mod
     saved = flatten_mod.MAX_WALK_CHUNKS
@@ -526,7 +718,7 @@ def chunk256_phase(model, lights, camera, dev, stats):
     assert scene.walk_chunk == 256, scene.walk_chunk
     log(f"diffuse at chunk {scene.walk_chunk}: {scene.walk_tris.shape[0]} "
         f"chunks")
-    closest, _ = frame_waves(scene, camera, 1, dev)
+    closest, _, _ = frame_waves(scene, camera, 1, dev)
     err = walk_check("diffuse@256", "primary", scene, closest[0], "closest")
     walk_check("diffuse@256", "primary", scene, closest[0], "any")
     stats["chunk256_err"] = err
@@ -554,16 +746,14 @@ def path_phase(name, scene, camera, spp, bounces, dev, stats, card):
     if img.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(img).all() \
             or (img < 0).any() or img.mean() <= 0:
         raise AssertionError(f"{name}: bad image")
-    want = (("dense_closest", "dense_any") if name == "scene3_cornell" else
-            ("walk_candidates", "walk_closest", "walk_any"))
-    for kname in want:
+    for kname in CELL_KERNELS[name]:
         if launches[kname] == 0:
             raise AssertionError(f"{name}: {kname} was never launched")
         stats[(name, kname)]["launches"] = launches[kname]
     mrays = WIDTH * HEIGHT * spp * bounces * 2 / seconds / 1e6
     log(f"  {name} render {WIDTH}x{HEIGHT} {spp} spp {bounces} bounces: "
         f"{seconds:.3f} s, {mrays:.2f} Mrays/s on {card.name_power}; "
-        f"launches {launches}; mean {img.mean():.5f}")
+        f"launches {launches} ({spp} frames); mean {img.mean():.5f}")
     stats[(name, "render")] = {"seconds": seconds, "mrays_per_s": mrays}
 
 
@@ -592,7 +782,8 @@ def profile_frame(name, scene, camera, bounces, dev):
         device_us += dev_us
         launches += ev.count
         for tag in ("walk_candidates", "walk_closest", "walk_any",
-                    "dense_closest", "dense_any"):
+                    "dense_closest", "dense_any", "packet_closest",
+                    "packet_any"):
             if tag in ev.key:
                 ours_us[tag] = ours_us.get(tag, 0.0) + dev_us
     ours = {k: round(v / 1e3, 3) for k, v in ours_us.items()}
@@ -640,7 +831,8 @@ def recorded_stages(path, records):
     and the throughput after each bounce."""
     saved = (path.generate_rays, path.intersect_closest, path.make_surface,
              path.intersect_any, path._nee, path.dispatch.sample,
-             path._shade_wave)
+             path._shade_wave, path.intersect_closest_cutout,
+             path.intersect_any_cutout)
 
     def rec(stage, **tensors):
         records.append((stage, tensors))
@@ -650,10 +842,12 @@ def recorded_stages(path, records):
         rec("camera rays", o=o, d=d)
         return o, d
 
-    def closest(*a, **k):
-        hit = saved[1](*a, **k)
-        rec("closest hits", t=hit.t, tri_id=hit.tri_id, u=hit.u, v=hit.v)
-        return hit
+    def recording_closest(query):
+        def closest(*a, **k):
+            hit = query(*a, **k)
+            rec("closest hits", t=hit.t, tri_id=hit.tri_id, u=hit.u, v=hit.v)
+            return hit
+        return closest
 
     def surface(*a, **k):
         seed, s = saved[2](*a, **k)
@@ -661,10 +855,12 @@ def recorded_stages(path, records):
             wo_local=s.wo_local)
         return seed, s
 
-    def any_hit(*a, **k):
-        blocked = saved[3](*a, **k)
-        rec("shadow rays", o=a[1], d=a[2], blocked=blocked)
-        return blocked
+    def recording_any(query):
+        def any_hit(*a, **k):
+            blocked = query(*a, **k)
+            rec("shadow rays", o=a[1], d=a[2], blocked=blocked)
+            return blocked
+        return any_hit
 
     def nee(*a, **k):
         seed, contrib = saved[4](*a, **k)
@@ -683,15 +879,18 @@ def recorded_stages(path, records):
         return out
 
     (path.generate_rays, path.intersect_closest, path.make_surface,
-     path.intersect_any, path._nee, path.dispatch.sample,
-     path._shade_wave) = (generate_rays, closest, surface, any_hit, nee,
-                          sample, shade)
+     path.intersect_any, path._nee, path.dispatch.sample, path._shade_wave,
+     path.intersect_closest_cutout, path.intersect_any_cutout) = (
+        generate_rays, recording_closest(saved[1]), surface,
+        recording_any(saved[3]), nee, sample, shade,
+        recording_closest(saved[7]), recording_any(saved[8]))
     try:
         yield
     finally:
         (path.generate_rays, path.intersect_closest, path.make_surface,
          path.intersect_any, path._nee, path.dispatch.sample,
-         path._shade_wave) = saved
+         path._shade_wave, path.intersect_closest_cutout,
+         path.intersect_any_cutout) = saved
 
 
 def _ulps(a, b):
@@ -709,8 +908,6 @@ def stage_trace(name, scene, camera, size, bounces, method):
     stage, and print the first stage that differs and by how much."""
     import torch
     from optixpathtracer_tpu_torch.integrate import path
-    from optixpathtracer_tpu_torch.scene.flatten import (scene_active_lobes,
-                                                         scene_flat_shading)
     runs = []
     for dev_scene in (scene, scene.to("cpu")):
         records = []
@@ -718,10 +915,7 @@ def stage_trace(name, scene, camera, size, bounces, method):
         with recorded_stages(path, records):
             path.render_sample(
                 dev_scene, *params, size, size, 0, max_bounces=bounces,
-                intersect_method=method,
-                active_lobes=scene_active_lobes(dev_scene),
-                use_textures=False,
-                flat_shading=scene_flat_shading(dev_scene))
+                intersect_method=method, **scene_flags(dev_scene))
         runs.append(records)
     gpu, cpu = runs
     assert [s for s, _ in gpu] == [s for s, _ in cpu]
@@ -754,14 +948,27 @@ def stage_trace(name, scene, camera, size, bounces, method):
     return first
 
 
-def gpu_vs_cpu_phase(scenes):
+def gpu_vs_cpu_phase(scenes, dev):
     from optixpathtracer_tpu_torch.integrate import path
+    from optixpathtracer_tpu_torch.scene import flatten_model
+    from optixpathtracer_tpu_torch.scene.procedural import PRESETS
     scene, camera, _, _ = scenes["scene3_cornell"]
     gpu = path.render(scene, camera, 48, 48, spp=2, max_bounces=2)
     cpu = path.render(scene.to("cpu"), camera, 48, 48, spp=2, max_bounces=2)
     assert_render_match(gpu.cpu().numpy(), cpu.numpy(),
                         "scene3_cornell 48x48 2 spp GPU vs CPU")
     stage_trace("scene3_cornell", scene, camera, 48, 2, "auto")
+    # textures and cutout; the packet kernels against the plain versions
+    # the CPU tests hold to the JAX package
+    model, camera, lights = PRESETS["hall_small"]()
+    scene = flatten_model(model, lights, device=dev)
+    gpu = path.render(scene, camera, 48, 48, spp=2, max_bounces=2,
+                      intersect_method="packet")
+    cpu = path.render(scene.to("cpu"), camera, 48, 48, spp=2,
+                      max_bounces=2, intersect_method="packet")
+    assert_render_match(gpu.cpu().numpy(), cpu.numpy(),
+                        "hall_small 48x48 2 spp GPU vs CPU (packet)")
+    stage_trace("hall_small", scene, camera, 48, 2, "packet")
     scene, camera, _, _ = scenes["layered"]
     gpu = path.render(scene, camera, 48, 48, spp=2, max_bounces=2,
                       intersect_method="walk")
@@ -784,6 +991,10 @@ KERNEL_SOURCES = {
                      "optixpathtracer_tpu/intersect/walk_kernels.py:139"),
     "walk_any": ("walk_intersect.cu",
                  "optixpathtracer_tpu/intersect/walk_kernels.py:240"),
+    "packet_closest": ("packet_intersect.cu",
+                       "optixpathtracer_tpu/intersect/packet_kernels.py:182"),
+    "packet_any": ("packet_intersect.cu",
+                   "optixpathtracer_tpu/intersect/packet_kernels.py:290"),
 }
 
 
@@ -812,15 +1023,25 @@ def main():
     cells = {name: (spp, bounces) for name, spp, bounces in CELLS}
     for name in dict.fromkeys([c[0] for c in CELLS] + list(IMAGE_SCENES)):
         model, camera, lights = PRESETS[name]()
+        t0 = time.perf_counter()
         scene = flatten_model(model, lights, device=dev)
+        seconds = time.perf_counter() - t0
         spp, bounces = cells.get(name, (2, 2))
         scenes[name] = (scene, camera, spp, bounces)
+        main_scene = scene if scene.opaque_scene is None else \
+            scene.opaque_scene
         log(f"{name}: {int(scene.tri_valid.sum())} triangles, "
-            f"{scene.walk_tris.shape[0]} walk chunks of {scene.walk_chunk}")
+            f"{main_scene.walk_tris.shape[0]} walk chunks of "
+            f"{main_scene.walk_chunk}"
+            + ("" if scene.cutout_sub is None else
+               f" (opaque sub-scene; cutout sub-scene "
+               f"{int(scene.cutout_sub.tri_valid.sum())} triangles)")
+            + f", flattened in {seconds:.1f} s")
         if name not in cells:
             continue
         log("kernel phase")
-        waves = frame_waves(scene, camera, bounces, dev)
+        closest, shadow, chains = frame_waves(scene, camera, bounces, dev)
+        waves = (closest, shadow)
         if name in DENSE_SCENES:
             dense_phase(name, scene, waves, card, stats)
         if name in WALK_SCENES:
@@ -828,16 +1049,22 @@ def main():
                        dense_table=name == "diffuse")
         if name == "diffuse":
             chunk256_phase(model, lights, camera, dev, stats)
+        if name == "hall":
+            walk_phase(name, main_scene, waves, card, stats,
+                       primary_sub=SUBSAMPLE)
+            packet_phase(name, main_scene, waves, card, stats)
+            dense_phase(name, scene.cutout_sub,
+                        (chains["closest"], chains["any"]), card, stats)
     log("path phase")
     for name, spp, bounces in CELLS:
         scene, camera, _, _ = scenes[name]
         path_phase(name, scene, camera, spp, bounces, dev, stats, card)
-    for name in WALK_SCENES:
+    for name in WALK_SCENES + ("hall",):
         scene, camera, _, bounces = scenes[name]
         profile_frame(name, scene, camera, bounces, dev)
     log("images")
     images_phase(scenes, dev)
-    gpu_vs_cpu_phase(scenes)
+    gpu_vs_cpu_phase(scenes, dev)
 
     kernels = []
     for name, spp, bounces in CELLS:
@@ -857,7 +1084,8 @@ def main():
             })
     assert {k["name"].split(":")[0] for k in kernels} == set(KERNEL_SOURCES)
     print(json.dumps({"dense_vs_walk": stats[("diffuse", "dense_vs_walk")],
-                      "block_compare": stats[("diffuse", "block_compare")]}))
+                      "block_compare": stats[("diffuse", "block_compare")],
+                      "walk_vs_packet": stats[("hall", "walk_vs_packet")]}))
     print(json.dumps({"kernels": kernels}))
     print(card.name_power)
     print(json.dumps({"ok": True, "device": {

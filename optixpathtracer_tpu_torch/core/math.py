@@ -200,6 +200,13 @@ def exp(x):
     return torch.exp(x.double()).float()
 
 
+def pow(x, p: float):
+    """x ** p of a float32 tensor for a float exponent, evaluated in float64
+    and rounded once to float32, for the reason given in `cos_sin` (CUDA's
+    powf, the CPU's and XLA's differ by an ulp)."""
+    return torch.pow(x.double(), p).float()
+
+
 def spherical_direction(sin_t, cos_t, phi):
     """(sinT cosPhi, sinT sinPhi, cosT) (reference `SphericalGeometry.h`)."""
     cos_phi, sin_phi = cos_sin(phi)

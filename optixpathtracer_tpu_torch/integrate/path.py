@@ -11,10 +11,11 @@ color/d^2 with no 1/4pi, uniform light pick with pdf 1/N, NEE not
 MIS-weighted, miss -> black, ray tmax = 100, kill threshold |beta| > 1e-5,
 1e-3 geometric-normal ray offsets, per-(pixel, frame) TEA seeding.
 
-Forward only: rendering runs under torch.no_grad(). The ray sort
-(`sort_rays`), segmented shading (`compact_shading`), material sort,
-`debug_pixel` and alpha cutout are not ported in this slice and raise
-NotImplementedError.
+Forward only: rendering runs under torch.no_grad(). With
+`use_alpha_cutout` (the default for scenes with cutout texels) closest hits
+and shadow rays go through `integrate/cutout.py`. The ray sort
+(`sort_rays`), segmented shading (`compact_shading`), material sort and
+`debug_pixel` are not ported yet and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ from ..camera.camera import generate_rays
 from ..core import rng
 from ..core.math import abs_cos_theta, div, dot, length, length_sqr, normalize
 from ..intersect import intersect_any, intersect_closest
+from .cutout import (intersect_any_cutout, intersect_closest_cutout,
+                     scene_uses_alpha_cutout)
 from .surface import make_surface
 
 RAY_TMAX = 100.0
@@ -32,7 +35,8 @@ SHADOW_OFFSET = 1e-3
 BETA_EPS = 1e-5
 
 
-def _nee(seed, scene, surf, beta, alive, intersect_method, active_lobes):
+def _nee(seed, scene, surf, beta, alive, intersect_method, active_lobes,
+         use_alpha_cutout=False):
     """Direct light from one uniformly picked point light
     (`devicePrograms.cu:444-472`, `LightMethods.h`). Returns (seed,
     contrib)."""
@@ -62,8 +66,12 @@ def _nee(seed, scene, surf, beta, alive, intersect_method, active_lobes):
     shadow_o = (surf.position
                 + (SHADOW_OFFSET * toward_light)[..., None] * surf.g_normal)
     shadow_tmax = torch.where(alive, dist, -1.0)
-    blocked = intersect_any(scene, shadow_o, wl, 0.0, shadow_tmax,
-                            method=intersect_method)
+    if use_alpha_cutout:
+        blocked = intersect_any_cutout(scene, shadow_o, wl, 0.0, shadow_tmax,
+                                       method=intersect_method)
+    else:
+        blocked = intersect_any(scene, shadow_o, wl, 0.0, shadow_tmax,
+                                method=intersect_method)
     visible = ~blocked & alive
 
     wl_local = surf.to_local(wl)
@@ -79,7 +87,7 @@ def _nee(seed, scene, surf, beta, alive, intersect_method, active_lobes):
 
 def _shade_wave(scene, o, d, seed, hit, beta, alive, radiance,
                 reference_compat, use_textures, flat_shading,
-                intersect_method, active_lobes):
+                intersect_method, active_lobes, use_alpha_cutout):
     """Surface context, NEE, BSDF sample and throughput/ray update for one
     wavefront. Returns (seed, radiance, beta, o, d, alive)."""
     seed, surf = make_surface(seed, scene, o, d, hit,
@@ -88,7 +96,8 @@ def _shade_wave(scene, o, d, seed, hit, beta, alive, radiance,
                               flat_shading=flat_shading)
 
     seed, nee_contrib = _nee(seed, scene, surf, beta, alive,
-                             intersect_method, active_lobes)
+                             intersect_method, active_lobes,
+                             use_alpha_cutout)
     radiance = radiance + torch.where(alive[..., None], nee_contrib, 0.0)
 
     seed, bs = dispatch.sample(seed, surf.mat, surf.wo_local, active_lobes)
@@ -109,16 +118,14 @@ def _shade_wave(scene, o, d, seed, hit, beta, alive, radiance,
     return seed, radiance, beta, o, d, alive
 
 
-def _not_ported(use_alpha_cutout, debug_pixel, sort_rays, compact_shading,
-                material_sort):
-    opts = {"use_alpha_cutout": use_alpha_cutout, "debug_pixel": debug_pixel,
-            "sort_rays": sort_rays, "compact_shading": compact_shading,
+def _not_ported(debug_pixel, sort_rays, compact_shading, material_sort):
+    opts = {"debug_pixel": debug_pixel, "sort_rays": sort_rays,
+            "compact_shading": compact_shading,
             "material_sort": material_sort}
     given = [k for k, v in opts.items() if v not in (None, False, 0)]
     if given:
         raise NotImplementedError(
-            f"trace_paths options {given} are not ported yet (alpha cutout "
-            "comes with the textures slice, the sort options later)")
+            f"trace_paths options {given} are not ported yet")
 
 
 def trace_paths(scene, o, d, seed, max_bounces: int,
@@ -134,8 +141,7 @@ def trace_paths(scene, o, d, seed, max_bounces: int,
                 material_sort: int = 0):
     """Trace one path per lane. o, d: [R, 3]; seed: [R] (int64 holding
     u32). Returns (radiance [R, 3], seed)."""
-    _not_ported(use_alpha_cutout, debug_pixel, sort_rays, compact_shading,
-                material_sort)
+    _not_ported(debug_pixel, sort_rays, compact_shading, material_sort)
     r = o.shape[0]
     radiance = torch.zeros((r, 3), device=o.device)
     beta = torch.ones((r, 3), device=o.device)
@@ -150,13 +156,19 @@ def trace_paths(scene, o, d, seed, max_bounces: int,
         closest_method = ("auto:bounce" if bounce
                           and intersect_method == "auto"
                           else intersect_method)
-        hit = intersect_closest(scene, o, d, 0.0, ray_tmax,
-                                method=closest_method)
+        if use_alpha_cutout:
+            hit = intersect_closest_cutout(scene, o, d, 0.0, ray_tmax,
+                                           method=closest_method)
+        else:
+            hit = intersect_closest(scene, o, d, 0.0, ray_tmax,
+                                    method=closest_method)
         # miss -> background is black; the path dies with radiance unchanged
         alive = alive & hit.hit
+        # the NEE shadow query inherits the bounce hint too
         seed, radiance, beta, o, d, alive = _shade_wave(
             scene, o, d, seed, hit, beta, alive, radiance, reference_compat,
-            use_textures, flat_shading, closest_method, active_lobes)
+            use_textures, flat_shading, closest_method, active_lobes,
+            use_alpha_cutout)
     return radiance, seed
 
 
@@ -242,7 +254,6 @@ def render(scene, camera, width: int, height: int, spp: int,
         from ..scene.flatten import scene_uses_textures
         use_textures = scene_uses_textures(scene)
     if use_alpha_cutout is None:
-        from .cutout import scene_uses_alpha_cutout
         use_alpha_cutout = scene_uses_alpha_cutout(scene)
     if flat_shading is None:
         from ..scene.flatten import scene_flat_shading

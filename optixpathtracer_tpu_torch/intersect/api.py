@@ -9,16 +9,17 @@ without a backward pass through any engine.
 
 Engines by method string (the reference's strings, so a caller passes the
 same one to both packages): "brute" (oracle), "pallas" (the dense sweep),
-"walk" (the walk engine), each CUDA kernels on CUDA tensors and plain
-versions on the CPU, and "bvh" (the skip-link BVH, CPU only). "packet" is
-not ported yet and raises NotImplementedError.
+"walk" (the walk engine) and "packet" (the packet engine), each CUDA
+kernels on CUDA tensors and plain versions on the CPU, and "bvh" (the
+skip-link BVH, CPU only).
 """
 from __future__ import annotations
 
 import torch
 
 from ..core.math import cross, dot
-from . import brute, bvh_traverse, dense_kernels, walk_kernels
+from . import (brute, bvh_traverse, dense_kernels, packet_kernels,
+               walk_kernels)
 from .types import Hit
 
 # CPU routing, as the reference routes off the TPU: below this triangle
@@ -31,25 +32,23 @@ WALK_MIN_CHUNKS = 8
 PACKET_BOUNCE_MIN_CHUNKS = 512
 
 _ENGINES = {"brute": brute, "bvh": bvh_traverse, "pallas": dense_kernels,
-            "walk": walk_kernels}
-_NOT_PORTED = {
-    "packet": "the packet engine (packet_kernels) is the next slice",
-}
+            "walk": walk_kernels, "packet": packet_kernels}
 
 
 def _resolve(method: str, scene, device) -> str:
     """The engine for `method` on `device`. "auto:bounce" is "auto" with the
-    hint that the wavefront is a secondary bounce."""
-    if method == "auto:bounce":
+    hint that the wavefront is a secondary bounce (incoherent directions),
+    which the packet engine serves on scenes of many chunks."""
+    bounce = method == "auto:bounce"
+    if bounce:
         method = "auto"
     if method != "auto":
         return method
     if torch.device(device).type == "cuda":
-        # The reference sends bounce wavefronts of scenes with at least
-        # PACKET_BOUNCE_MIN_CHUNKS chunks to the packet engine. Until that
-        # engine is ported they take the walk engine: every engine returns
-        # the same hits, so only the speed differs.
-        if scene.walk_tris.shape[0] >= WALK_MIN_CHUNKS:
+        n_chunks = scene.walk_tris.shape[0]
+        if n_chunks >= WALK_MIN_CHUNKS:
+            if bounce and n_chunks >= PACKET_BOUNCE_MIN_CHUNKS:
+                return "packet"
             return "walk"
         return "pallas"
     n = scene.tri_v0.shape[0]
@@ -59,9 +58,6 @@ def _resolve(method: str, scene, device) -> str:
 def _engine(method: str):
     if method in _ENGINES:
         return _ENGINES[method]
-    if method in _NOT_PORTED:
-        raise NotImplementedError(f"intersect method {method!r}: "
-                                  f"{_NOT_PORTED[method]}")
     raise ValueError(f"unknown intersect method {method!r}")
 
 
@@ -102,8 +98,7 @@ def _bound(x, device):
 
 def intersect_closest(scene, o, d, tmin=0.0, tmax=100.0, method="auto"):
     """Closest-hit query with differentiable refinement. method in
-    {'auto', 'auto:bounce', 'brute', 'bvh', 'pallas', 'walk'} (and the not
-    yet ported 'packet')."""
+    {'auto', 'auto:bounce', 'brute', 'bvh', 'pallas', 'walk', 'packet'}."""
     engine = _engine(_resolve(method, scene, o.device))
     tmin = _bound(tmin, o.device)
     tmax = _bound(tmax, o.device)

@@ -264,9 +264,11 @@ def _ray_specs(o, d, tmin, tmax):
             (tmax, f32, (r,))]
 
 
-def _call(name, device, *args):
+def _call(fn, name, device, *args):
+    """Launch the C entry point fn(name) on the current stream of device;
+    raise on a launch error."""
     with torch.cuda.device(device):
-        err = _fn(name)(*args, torch.cuda.current_stream().cuda_stream)
+        err = fn(name)(*args, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
@@ -279,8 +281,8 @@ def candidates_kernel(boxes, o, d, tmin, tmax, block_rays=BLOCK_RAYS):
                        + [(boxes, torch.float32, (6, n_chunks))], o)
     maxc_pad = -(-n_chunks // LANES) * LANES
     entry = torch.empty((nb, maxc_pad), dtype=torch.float32, device=o.device)
-    _call("walk_candidates", o.device, *ptrs[:4], r, block_rays, ptrs[4],
-          n_chunks, maxc_pad, entry.data_ptr())
+    _call(_fn, "walk_candidates", o.device, *ptrs[:4], r, block_rays,
+          ptrs[4], n_chunks, maxc_pad, entry.data_ptr())
     candidates_kernel.launches += 1
     return entry
 
@@ -312,10 +314,10 @@ def closest_kernel(walk_tris, boxes, cand, tnear, count, o, d, tmin, tmax,
     o_p, d_p, tmin_p, tmax_p, cand_p, count_p, boxes_p, tris_p, tnear_p = ptrs
     out_t = torch.empty(r, dtype=torch.float32, device=o.device)
     out_id = torch.empty(r, dtype=torch.int32, device=o.device)
-    _call("walk_closest", o.device, o_p, d_p, tmin_p, tmax_p, r, block_rays,
-          cand_p, tnear_p, count_p, maxc_pad, boxes_p, n_chunks, tris_p,
-          chunk, out_t.data_ptr(), out_id.data_ptr(), counts[0].data_ptr(),
-          counts[1].data_ptr())
+    _call(_fn, "walk_closest", o.device, o_p, d_p, tmin_p, tmax_p, r,
+          block_rays, cand_p, tnear_p, count_p, maxc_pad, boxes_p, n_chunks,
+          tris_p, chunk, out_t.data_ptr(), out_id.data_ptr(),
+          counts[0].data_ptr(), counts[1].data_ptr())
     closest_kernel.launches += 1
     closest_kernel.swept, closest_kernel.tests = counts
     return out_t, out_id
@@ -328,9 +330,9 @@ def any_kernel(walk_tris, boxes, cand, count, o, d, tmin, tmax,
         walk_tris, boxes, cand, count, o, d, tmin, tmax, block_rays)
     o_p, d_p, tmin_p, tmax_p, cand_p, count_p, boxes_p, tris_p = ptrs
     out = torch.empty(r, dtype=torch.int32, device=o.device)
-    _call("walk_any", o.device, o_p, d_p, tmin_p, tmax_p, r, block_rays,
-          cand_p, count_p, maxc_pad, boxes_p, n_chunks, tris_p, chunk,
-          out.data_ptr(), counts[0].data_ptr(), counts[1].data_ptr())
+    _call(_fn, "walk_any", o.device, o_p, d_p, tmin_p, tmax_p, r,
+          block_rays, cand_p, count_p, maxc_pad, boxes_p, n_chunks, tris_p,
+          chunk, out.data_ptr(), counts[0].data_ptr(), counts[1].data_ptr())
     any_kernel.launches += 1
     any_kernel.swept, any_kernel.tests = counts
     return out > 0
@@ -393,6 +395,12 @@ def intersect_closest(scene, o, d, tmin=0.0, tmax=100.0,
     walk padding or flat padding are rejected as misses."""
     best_t, best_id = intersect_closest_raw(scene, o, d, tmin, tmax,
                                             block_rays)
+    return _hit_record(scene, o, best_t, best_id, tmax)
+
+
+def _hit_record(scene, o, best_t, best_id, tmax):
+    """The Hit of raw (t, id) in the walk-padded index space: ids of walk
+    or flat padding are misses, and misses report tmax."""
     n_real = scene.tri_valid.shape[0]
     valid = ((best_id >= 0) & (best_id < n_real)
              & scene.tri_valid[best_id.clamp(0, n_real - 1).long()])

@@ -10,8 +10,10 @@ the last step differs: leaves become torch tensors on a chosen device.
 flattened (its leaves as numpy arrays) across unchanged. The material table
 (`mat_*`) is the scene's learnable state.
 
-Not ported in this slice: the opaque/cutout scene split (reference
-`flatten.py:355-387`); a scene that needs it raises NotImplementedError.
+A scene that mixes alpha-cutout and opaque meshes also carries two
+sub-scenes, flattened on their own (reference `flatten.py:355-387`): the
+opaque meshes and the cutout ones, each with `tri_outer_id` mapping its
+triangles to the outer scene's ids. `integrate/cutout.py` queries them.
 """
 from __future__ import annotations
 
@@ -128,11 +130,13 @@ class SceneData:
     walk_node_box: torch.Tensor
     walk_node_link: torch.Tensor
     walk_sub_box: torch.Tensor
-    # opaque/cutout split: not ported, always None here
+    # opaque/cutout split (integrate/cutout.py): sub-scenes over just the
+    # opaque and just the cutout-capable meshes, or None
     opaque_scene: object = None
     cutout_sub: object = None
     # output slot -> pre-BVH triangle index (-1 for padding)
     tri_src: object = None
+    # sub-scenes only: output slot -> the outer scene's triangle id
     tri_outer_id: object = None
     cache: dict = dataclasses.field(default_factory=dict, repr=False,
                                     compare=False)
@@ -154,8 +158,12 @@ class SceneData:
         return self.light_pos.shape[0]
 
     def to(self, device) -> "SceneData":
-        """A copy with every tensor on `device` (and an empty cache)."""
-        return dataclasses.replace(self, cache={}, **{
+        """A copy with every tensor on `device`, sub-scenes included (each
+        with an empty cache)."""
+        subs = {k: None if getattr(self, k) is None
+                else getattr(self, k).to(device)
+                for k in ("opaque_scene", "cutout_sub")}
+        return dataclasses.replace(self, cache={}, **subs, **{
             k: v.to(device) for k, v in self.leaves().items()})
 
     def leaves(self) -> dict:
@@ -180,21 +188,20 @@ def _device(device) -> torch.device:
 def scene_from_jax(leaves: dict, device="cuda") -> SceneData:
     """The port's SceneData from the leaves of a JAX-flattened scene.
 
-    `leaves` maps field names to numpy arrays (for a JAX SceneData `s`:
-    `{k: None if v is None else np.asarray(v) for k, v in
-    s._asdict().items()}`). Values are carried across unchanged."""
+    `leaves` maps field names to numpy arrays, and a sub-scene
+    (`opaque_scene`, `cutout_sub`) to a dict of its own leaves, since a
+    NamedTuple is no array (for a JAX SceneData `s`: `{k: None if v is None
+    else leaves_of(v) if hasattr(v, "_asdict") else np.asarray(v) for k, v
+    in s._asdict().items()}`). Values are carried across unchanged."""
     device = _device(device)
-    for k in ("opaque_scene", "cutout_sub", "tri_outer_id"):
-        if leaves.get(k) is not None:
-            raise NotImplementedError(
-                "the opaque/cutout scene split is not ported yet "
-                "(textures + cutout slice)")
     names = [f.name for f in dataclasses.fields(SceneData)
-             if f.name not in ("opaque_scene", "cutout_sub", "tri_outer_id",
-                               "cache")]
-    return SceneData(**{
+             if f.name not in ("opaque_scene", "cutout_sub", "cache")]
+    subs = {k: None if leaves.get(k) is None
+            else scene_from_jax(leaves[k], device)
+            for k in ("opaque_scene", "cutout_sub")}
+    return SceneData(**subs, **{
         k: None if leaves.get(k) is None
-        else torch.as_tensor(np.array(leaves[k]), device=device)
+        else torch.as_tensor(np.array(leaves[k], order="C"), device=device)
         for k in names})
 
 
@@ -242,8 +249,10 @@ def _resize_texture(pixels: np.ndarray, res: int) -> np.ndarray:
     return out
 
 
-def _mat_is_cutout_capable(mat, textures) -> bool:
-    """Does this material's albedo texture contain decoded alpha < 0.9?"""
+def _mat_is_cutout_capable(mat, textures, texture_res) -> bool:
+    """Does this material's albedo texture contain decoded alpha < 0.9?
+    (the anyhit-cutout trigger, `devicePrograms.cu:534,543`; texture_res
+    is unused, as in the reference)"""
     if mat.albedo_texture < 0 or mat.albedo_texture >= len(textures):
         return False
     alpha = np.asarray(textures[mat.albedo_texture].pixels)[..., 3]
@@ -253,7 +262,8 @@ def _mat_is_cutout_capable(mat, textures) -> bool:
 
 
 def flatten_model(model: Model, lights=None, texture_res: int = TEXTURE_RES,
-                  build_bvh: bool = True, device="cuda") -> SceneData:
+                  build_bvh: bool = True, device="cuda",
+                  _split_cutout: bool = True) -> SceneData:
     """Bake a Model + lights into a SceneData on `device` (the GPU unless
     the caller asks for the CPU)."""
     device = _device(device)
@@ -370,22 +380,49 @@ def flatten_model(model: Model, lights=None, texture_res: int = TEXTURE_RES,
         light_pos = np.zeros((0, 3), np.float32)
         light_color = np.zeros((0, 3), np.float32)
 
-    # --- the reference splits opaque and cutout meshes here
-    if build_bvh and model.textures:
-        cut = [_mat_is_cutout_capable(m.material, model.textures)
-               for m in model.meshes]
-        if any(cut) and not all(cut):
-            raise NotImplementedError(
-                "scenes with alpha-cutout textures need the opaque/cutout "
-                "split, which is not ported yet (textures + cutout slice)")
+    # --- opaque/cutout scene split for the occlusion and closest fast paths
+    opaque_scene = cutout_sub = None
+    if _split_cutout and build_bvh and model.textures:
+        cut_flags = [_mat_is_cutout_capable(m.material, model.textures,
+                                            texture_res)
+                     for m in model.meshes]
+        cut_meshes = [m for m, f in zip(model.meshes, cut_flags) if f]
+        opq_meshes = [m for m, f in zip(model.meshes, cut_flags) if not f]
+        if cut_meshes and opq_meshes:
+            # pre-BVH triangle index ranges of each mesh in the OUTER
+            # concat order, for mapping sub-scene hits to outer ids
+            mesh_tris = [len(m.indices) for m in model.meshes]
+            starts = np.concatenate([[0], np.cumsum(mesh_tris)[:-1]])
+            outer_pre_to_post = np.full(t_real, -1, np.int32)
+            outer_pre_to_post[tri_src_np] = np.arange(t_real, dtype=np.int32)
+
+            def _sub(meshes, flags_sel):
+                sub = flatten_model(
+                    Model(meshes=meshes, textures=model.textures), [],
+                    texture_res, build_bvh, device, _split_cutout=False)
+                pre_map = np.concatenate(
+                    [np.arange(starts[i], starts[i] + mesh_tris[i],
+                               dtype=np.int32)
+                     for i, f in enumerate(cut_flags) if f == flags_sel]
+                ) if meshes else np.zeros(0, np.int32)
+                src = sub.tri_src.cpu().numpy()
+                outer_id = np.full(len(src), -1, np.int32)
+                valid = src >= 0
+                outer_id[valid] = outer_pre_to_post[pre_map[src[valid]]]
+                sub.tri_outer_id = torch.as_tensor(outer_id, device=device)
+                return sub
+
+            opaque_scene = _sub(opq_meshes, False)
+            cutout_sub = _sub(cut_meshes, True)
 
     tri_src_pad = np.concatenate(
         [tri_src_np, np.full(pad, -1, np.int32)]) if pad else tri_src_np
 
-    def _t(a):
-        return torch.as_tensor(a, device=device)
+    def _t(a):  # C order: the kernels take contiguous tensors
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
     return SceneData(
+        opaque_scene=opaque_scene, cutout_sub=cutout_sub,
         tri_src=_t(tri_src_pad),
         tri_v0=_t(v0), tri_e1=_t(e1), tri_e2=_t(e2),
         tri_normals=_t(normals), tri_uvs=_t(uvs),

@@ -7,6 +7,7 @@ without tests/conftest.py (it sets JAX up):
 The plain versions are the reference here; the CPU tests
 (tests/test_torch_intersect.py) hold them against the JAX package."""
 import contextlib
+import functools
 
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ from optixpathtracer_tpu_torch.camera import Camera
 from optixpathtracer_tpu_torch.camera.camera import generate_rays
 from optixpathtracer_tpu_torch.integrate import path
 from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
+from optixpathtracer_tpu_torch.intersect import packet_kernels as pk
 from optixpathtracer_tpu_torch.intersect import walk_kernels as wk
 from optixpathtracer_tpu_torch.scene import (Material, Model, PointLight,
                                              flatten_model)
@@ -36,10 +38,11 @@ def cuda():
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the CUDA path of the dense and walk engines to the plain
-    versions."""
+    """Route the CUDA path of the dense, walk and packet engines to the
+    plain versions."""
     saved = (dk.closest_kernel, dk.any_kernel, wk.candidates_kernel,
-             wk.closest_kernel, wk.any_kernel)
+             wk.closest_kernel, wk.any_kernel, pk.packet_closest_kernel,
+             pk.packet_any_kernel)
     dk.closest_kernel = lambda tris, boxes, *rays: dk.closest_plain(tris,
                                                                     *rays)
     dk.any_kernel = lambda tris, boxes, *rays: dk.any_plain(tris, *rays)
@@ -48,11 +51,16 @@ def plain_kernels():
                          wk.closest_plain(tris, cand, count, *rays))
     wk.any_kernel = (lambda tris, boxes, cand, count, *rays:
                      wk.any_plain(tris, cand, count, *rays))
+    pk.packet_closest_kernel = functools.partial(pk.plain_launch,
+                                                 pk.packet_closest_plain)
+    pk.packet_any_kernel = functools.partial(pk.plain_launch,
+                                             pk.packet_any_plain)
     try:
         yield
     finally:
         (dk.closest_kernel, dk.any_kernel, wk.candidates_kernel,
-         wk.closest_kernel, wk.any_kernel) = saved
+         wk.closest_kernel, wk.any_kernel, pk.packet_closest_kernel,
+         pk.packet_any_kernel) = saved
 
 
 def _sphere_floor_rays(device):
@@ -192,6 +200,82 @@ def test_walk_launch_errors_raise(cuda):
     tmin = torch.zeros(o.shape[0], device=cuda)
     with pytest.raises(ValueError):  # mixed devices are refused
         wk.candidates_kernel(boxes, o.cpu(), d, tmin, tmin)
+
+
+def _check_packet_kernels(scene, o, d, tmin, tmax, block_rays):
+    """Both packet kernels against the plain words and sweeps on one
+    query: words bit-identical, ids, t and blocked flags identical."""
+    perm = wk._coherence_perm(scene, o, d)
+    rays = [x[perm].contiguous() for x in (o, d, tmin, tmax)]
+    cand, tnear, count = wk.sort_candidates(
+        wk.candidates_kernel(wk._chunk_boxes(scene), *rays, block_rays))
+    args = (scene.walk_tris, scene.walk_sub_box, cand, tnear, count, *rays,
+            block_rays)
+    words = pk.packet_words_plain(scene.walk_sub_box, cand, tnear, *rays,
+                                  scene.walk_chunk, block_rays)[0]
+    kt, ki = pk.packet_closest_kernel(*args, with_words=True)
+    pt, pi = pk.packet_closest_plain(scene.walk_tris, cand, words, *rays,
+                                     block_rays)
+    torch.cuda.synchronize()
+    assert torch.equal(pk.packet_closest_kernel.words, words)
+    assert torch.equal(ki, pi)
+    assert torch.equal(kt, pt)
+    k = pk.packet_closest_kernel
+    assert k.swept.shape == k.tests.shape == k.slabs.shape == count.shape
+    assert (k.tests <= k.swept * 8 * pk.SUB).all() and k.tests.sum() > 0
+    kb = pk.packet_any_kernel(*args, with_words=True)
+    pb = pk.packet_any_plain(scene.walk_tris, cand, words, *rays, block_rays)
+    assert torch.equal(pk.packet_any_kernel.words, words)
+    assert torch.equal(kb, pb)
+    assert not kb[rays[3] < 0].any()
+    return ki, kb
+
+
+@pytest.mark.parametrize("block_rays,max_walk_chunks", [
+    (256, None), (1024, None), (256, 20)])
+def test_packet_kernels_match_plain(cuda, block_rays, max_walk_chunks):
+    """At chunk 128 and (MAX_WALK_CHUNKS = 20) at chunk 256, on primaries
+    and on scattered rays from the hit points, with dead lanes."""
+    scene, o, d = _walk_scene_rays(cuda, max_walk_chunks)
+    assert scene.walk_chunk == (128 if max_walk_chunks is None else 256)
+    r = o.shape[0]
+    tmin = torch.zeros(r, device=cuda)
+    tmax = torch.full((r,), 100.0, device=cuda)
+    tmax[::11] = -1.0
+    ki, kb = _check_packet_kernels(scene, o, d, tmin, tmax, block_rays)
+    assert (ki >= 0).any() and (ki < 0).any() and kb.any()
+    hit = wk.intersect_closest(scene, o, d, 0.0, 100.0)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    dirs = torch.randn((r, 3), generator=gen).to(cuda)
+    dirs = dirs / dirs.norm(dim=1, keepdim=True)
+    origins = (o + hit.t[:, None] * d + 1e-3 * dirs).contiguous()
+    tmax = torch.where(hit.hit, 5.0, -1.0)
+    _check_packet_kernels(scene, origins, dirs.contiguous(), tmin, tmax,
+                          block_rays)
+    from optixpathtracer_tpu_torch.intersect import brute
+    got = pk.intersect_closest(scene, origins, dirs, 0.0, tmax, block_rays)
+    want = brute.intersect_closest(scene, origins, dirs, 0.0, tmax)
+    assert torch.equal(got.tri_id, want.tri_id)
+
+
+def test_hall_small_packet_render_matches_plain(cuda):
+    """hall_small (textured, cutout) rendered with the packet engine on
+    both sub-scenes, against the plain versions by the engine-golden
+    criterion."""
+    model, camera, lights = PRESETS["hall_small"]()
+    scene = flatten_model(model, lights, device=cuda)
+    before = (pk.packet_closest_kernel.launches, pk.packet_any_kernel.launches)
+    img = path.render(scene, camera, 32, 32, spp=1, max_bounces=2,
+                      intersect_method="packet").cpu().numpy()
+    after = (pk.packet_closest_kernel.launches, pk.packet_any_kernel.launches)
+    assert after[0] > before[0] and after[1] > before[1]
+    with plain_kernels():
+        want = path.render(scene, camera, 32, 32, spp=1, max_bounces=2,
+                           intersect_method="packet").cpu().numpy()
+    assert np.isfinite(img).all() and (img >= 0).all() and img.mean() > 0.005
+    close = np.isclose(img, want, atol=1e-5, rtol=1e-4).all(axis=-1)
+    assert close.mean() > 0.995
+    np.testing.assert_allclose(img.mean(), want.mean(), rtol=1e-3)
 
 
 @pytest.mark.parametrize("name,size,spp,bounces", [

@@ -182,9 +182,14 @@ def test_api_routes_and_detaches(scenes_and_rays):
     assert api._resolve("auto:bounce", scene, "cuda") == "pallas"
     assert api._resolve("auto", scene, torch.device("cuda", 0)) == "pallas"
     assert api._resolve("brute", scene, "cuda") == "brute"
-    with pytest.raises(NotImplementedError):
+    packet = api.intersect_closest(scene, torch.from_numpy(o),
+                                   torch.from_numpy(d), method="packet")
+    oracle = jbrute.intersect_closest(jscene, o, d, 0.0, 100.0)
+    np.testing.assert_array_equal(packet.tri_id.numpy(),
+                                  np.asarray(oracle.tri_id))
+    with pytest.raises(ValueError, match="unknown"):
         api.intersect_closest(scene, torch.from_numpy(o), torch.from_numpy(d),
-                              method="packet")
+                              method="optix")
     # gradients reach ray origins through _refine, not through the engine
     ot = torch.from_numpy(o).requires_grad_(True)
     got = api.intersect_closest(scene, ot, torch.from_numpy(d), 0.0, 100.0,

@@ -337,8 +337,10 @@ def test_api_routes_walk_and_bvh(walk_case):
         np.testing.assert_array_equal(getattr(got, k).numpy(),
                                       getattr(want, k).numpy())
     np.testing.assert_allclose(got.u.numpy(), want.u.numpy(), atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        api.intersect_closest(scene, _t(o), _t(d), method="packet")
+    packet = api.intersect_closest(scene, _t(o), _t(d), method="packet")
+    for k in ("hit", "tri_id", "back_face"):
+        np.testing.assert_array_equal(getattr(packet, k).numpy(),
+                                      getattr(want, k).numpy())
 
 
 def test_unwalkable_scene_raises():
