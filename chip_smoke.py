@@ -32,7 +32,11 @@ runs the dense closest kernel over the 40-triangle cutout sub-scene).
    warm-up at every wavefront, the engines' plain torch steps too
    (coherence sort, candidate sort); `diffuse` gets a dense-vs-walk table
    per wavefront and a 256- vs 1024-ray block table, hall a walk-vs-packet
-   table per wavefront with the packet engine at 256- and 1024-ray blocks.
+   table per wavefront with the packet engine at 256- and 1024-ray blocks
+   and, per packet kernel, its registers (ptxas -v) and shared memory a
+   block (the union tile of packet_kernels.smem_plan), and at each hall
+   wavefront the subchunks swept a packet, the triangle and slab tests,
+   the bound and its reach (bound / kernel ms).
    Each kernel's bound is computed from this run's inputs: the
    ray-triangle tests the sweeps report running (and the packet kernels'
    ray-subchunk slab tests) times the FP32 operations of one test, over
@@ -64,6 +68,7 @@ without a CUDA device or without the rest of the repository.
 import contextlib
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -637,11 +642,41 @@ def packet_times(scene, rays, kind, block_rays, reps=10):
            "sort": cuda_time_ms(lambda: wk.sort_candidates(entry), reps),
            "sweep": cuda_time_ms(sweep, reps)}
     sweep()
+    tile = pk.smem_plan(scene.walk_chunk, block_rays, cand.shape[1])[0]
     out.update(tests=int(kernel.tests.sum()), slabs=int(kernel.slabs.sum()),
                swept=int(kernel.swept.sum()),
                total=out["perm"] + out["candidates"] + out["sort"]
-               + out["sweep"])
+               + out["sweep"], rays=srays[0].shape[0], blocks=cand.shape[0],
+               maxc_pad=cand.shape[1], tile=tile,
+               mean_candidates=float(count.float().mean()),
+               tiles=sum(len(pk.union_tiles(c, tile))
+                         for c in count.tolist()))
     return out
+
+
+def packet_bound(card, scene, kind, t):
+    """(bound ms, bound_by) of one packet sweep from its reported counts:
+    tests x MT_OPS + slab tests x SLAB_OPS, or the bytes it must move (rays
+    and answers, the candidate rows, the subchunk boxes and triangles)."""
+    n_bytes = (t["rays"] * (40 if kind == "closest" else 36)
+               + t["blocks"] * t["maxc_pad"] * 8 + t["blocks"] * 4
+               + scene.walk_sub_box.numel() * 4
+               + scene.walk_tris.numel() * 4)
+    return card.bound(t["tests"] * MT_OPS + t["slabs"] * SLAB_OPS, n_bytes)
+
+
+def ptxas_usage(report):
+    """{kernel name: (registers, static shared bytes)} from a ptxas -v
+    report."""
+    usage, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            usage[name] = (int(m.group(1)), int(m.group(2) or 0))
+    return usage
 
 
 def packet_phase(name, scene, waves, card, stats):
@@ -678,6 +713,29 @@ def packet_phase(name, scene, waves, card, stats):
                 f"1024: {p1024['total']:.3f}, sweep {p1024['sweep']:.3f}) "
                 f"-> walk / packet {walk / p256['total']:.2f}x")
     stats[(name, "walk_vs_packet")] = rows
+    usage = ptxas_usage(stats.get("ptxas", {}).get("packet_intersect", ""))
+    for kind, waves_k in kinds.items():
+        kname = f"packet_{kind}"
+        regs = [v for k, v in usage.items() if kname in k]
+        t0 = per[(kind, pk.BLOCK_RAYS)][0]
+        n_bytes = pk.smem_plan(scene.walk_chunk, pk.BLOCK_RAYS,
+                               t0["maxc_pad"])[1]
+        ctas, threads = pk.grid(t0["rays"], pk.BLOCK_RAYS)
+        log(f"  {name} {kname}: "
+            + (f"{regs[0][0]} registers, {regs[0][1]} bytes static"
+               if regs else "ptxas report not printed (library cached)")
+            + f" + {n_bytes} bytes dynamic shared memory a {threads}-thread "
+            f"block, {ctas} blocks (union tile {t0['tile']} ranks)")
+        for b, t in enumerate(per[(kind, pk.BLOCK_RAYS)]):
+            bound_ms, bound_by = packet_bound(card, scene, kind, t)
+            packets = -(-t["rays"] // pk.PACKET)
+            log(f"    bounce-{b}: {t['swept'] / packets:.2f} subchunks swept"
+                f" a packet, {t['tests']:.4g} triangle tests, "
+                f"{t['slabs']:.4g} slab tests; kernel {t['sweep']:.3f} ms, "
+                f"bound {bound_ms:.3f} ms ({bound_by}), reach "
+                f"{bound_ms / t['sweep']:.1%}; {t['mean_candidates']:.1f} "
+                f"candidates a block, {t['tiles']} union tiles staged for "
+                f"{t['blocks']} blocks")
     for kind in kinds:
         kname = f"packet_{kind}"
         t = per[(kind, pk.BLOCK_RAYS)][-1]  # the bounce-1 wavefront
@@ -688,13 +746,8 @@ def packet_phase(name, scene, waves, card, stats):
         plain_ms, _ = cuda_time_once(lambda: pk.plain_launch(
             sweep, scene.walk_tris, scene.walk_sub_box, cand, tnear, count,
             *srays, pk.BLOCK_RAYS))
-        r, nb = srays[0].shape[0], cand.shape[0]
-        n_bytes = (r * (40 if kind == "closest" else 36)
-                   + nb * cand.shape[1] * 8 + nb * 4
-                   + scene.walk_sub_box.numel() * 4
-                   + scene.walk_tris.numel() * 4)
-        bound_ms, bound_by = card.bound(
-            t["tests"] * MT_OPS + t["slabs"] * SLAB_OPS, n_bytes)
+        r = srays[0].shape[0]
+        bound_ms, bound_by = packet_bound(card, scene, kind, t)
         log(f"  {name} {kname}: kernel {t['sweep']:.3f} ms, plain "
             f"{plain_ms:.1f} ms, bound {bound_ms:.3f} ms ({bound_by}; "
             f"{t['tests']:.4g} triangle tests, {t['slabs']:.4g} slab tests,"
@@ -1013,12 +1066,12 @@ def main():
     t0 = time.perf_counter()
     reports = _build.build()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    stats = {"ptxas": reports}
     for line in "".join(reports.values()).splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas: " + line.strip())
     dev = torch.device("cuda")
 
-    stats = {}
     scenes = {}
     cells = {name: (spp, bounces) for name, spp, bounces in CELLS}
     for name in dict.fromkeys([c[0] for c in CELLS] + list(IMAGE_SCENES)):

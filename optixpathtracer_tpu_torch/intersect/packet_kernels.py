@@ -14,8 +14,10 @@ carry the work, each with two implementations of one contract:
 * CUDA kernels in `csrc/packet_intersect.cu`, launched on CUDA tensors:
   `packet_closest_kernel` (replacing the Pallas
   `_make_packet_closest_kernel`) and `packet_any_kernel`
-  (`_make_packet_any_kernel`). They form the words themselves, one warp
-  ballot per word, so the words never reach device memory;
+  (`_make_packet_any_kernel`), one CTA per ray block. They form the words
+  themselves, one warp ballot per word, so the words never reach device
+  memory; the CTA stages its block's union in shared memory in tiles that
+  `smem_plan` sizes (`union_tiles` lists them);
 * plain PyTorch versions, for CPU tensors and as the kernels' check:
   `packet_words_plain`, then `packet_closest_plain` / `packet_any_plain`,
   which test every ray of a packet against every subchunk whose bit is
@@ -34,6 +36,7 @@ With `with_words=True` a wrapper also keeps the words the kernel formed in
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -47,6 +50,19 @@ PACKET = 8           # rays per packet
 SUB = 128            # triangles per subchunk
 BLOCK_RAYS = 256     # rays per candidate block (the reference: 1024)
 _MASK_TILE = 512     # subchunks per step of the plain word formation
+ROWS = 9             # v0, e1, e2 rows of a walk chunk that a sweep reads
+
+# The kernels' CTA (csrc/packet_intersect.cu kWarps, kCtasPerSm): WARPS
+# warps sweep one ray block, each staging one subchunk's triangles at a
+# time; CTAS_PER_SM CTAs share an SM (the __launch_bounds__ minimum).
+WARPS = 8
+CTAS_PER_SM = 4
+# Shared memory: an H100 SM holds 228 KB and keeps 1 KB of it per CTA; one
+# CTA may take at most 227 KB. The plan keeps a CTA to SMEM_BUDGET, so
+# CTAS_PER_SM CTAs fit an SM.
+SM_SHARED = 228 * 1024
+SMEM_MAX = 227 * 1024
+SMEM_BUDGET = SM_SHARED // CTAS_PER_SM - 1024
 
 
 def _n_sub(chunk):
@@ -216,11 +232,63 @@ def packet_any_plain(walk_tris, cand, words, o, d, tmin, tmax,
 # CUDA kernels (csrc/packet_intersect.cu)
 # ---------------------------------------------------------------------------
 
+def _align16(n):
+    return -(-n // 16) * 16
+
+
+def smem_bytes(tile_ranks, chunk, block_rays, warps=WARPS):
+    """Dynamic shared memory of one CTA holding a tile of `tile_ranks`
+    candidate ranks: the kernels' `Smem` layout (each section 16-byte
+    aligned): the warps' staged subchunks and packet rays, the tile's
+    subchunk boxes, cand and tnear, and every packet's answer so far."""
+    n_sub, packets = _n_sub(chunk), block_rays // PACKET
+    sizes = (warps * ROWS * SUB * 4, warps * PACKET * 3 * 16,
+             6 * tile_ranks * n_sub * 4, tile_ranks * 4, tile_ranks * 4,
+             packets * PACKET * 4, packets * PACKET * 4, packets * 4, 4 * 4)
+    return sum(_align16(x) for x in sizes)
+
+
+def smem_plan(chunk, block_rays, maxc_pad, warps=WARPS, budget=None):
+    """(tile_ranks, bytes) of a launch: the most candidate ranks a tile of
+    the union holds within `budget` bytes of shared memory (SMEM_BUDGET),
+    never more than the row (maxc_pad), in steps that keep a tile's
+    subchunks whole words (tile_ranks * n_sub a multiple of 32)."""
+    budget = SMEM_BUDGET if budget is None else budget
+    n_sub = _n_sub(chunk)
+    step = 32 // math.gcd(32, n_sub)
+    per_step = smem_bytes(step, chunk, block_rays, warps) - smem_bytes(
+        0, chunk, block_rays, warps)
+    fit = (budget - smem_bytes(0, chunk, block_rays, warps)) // per_step
+    tile = min(max(fit, 1), -(-maxc_pad // step)) * step
+    while tile > step and smem_bytes(tile, chunk, block_rays,
+                                     warps) > budget:
+        tile -= step
+    n_bytes = smem_bytes(tile, chunk, block_rays, warps)
+    if n_bytes > min(budget, SMEM_MAX):
+        raise ValueError(f"chunk {chunk}, block_rays {block_rays}: one tile "
+                         f"of the union needs {n_bytes} bytes of shared "
+                         f"memory, over {min(budget, SMEM_MAX)}")
+    return tile, n_bytes
+
+
+def union_tiles(count, tile_ranks):
+    """The tiles a CTA stages for a block with `count` candidates, as the
+    kernels loop over them: [(first rank, end rank)], covering [0, count)."""
+    return [(j0, min(j0 + tile_ranks, count))
+            for j0 in range(0, count, tile_ranks)]
+
+
+def grid(n_rays, block_rays, warps=WARPS):
+    """(CTAs, threads a CTA) of a launch: one CTA per ray block."""
+    return _n_blocks(n_rays, block_rays), warps * 32
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # rays, n, block_rays, cand, tnear, count, maxc_pad, sub_box, n_chunks,
-# tris, chunk; then the outputs, words, the three counts and the stream
-_IN = [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _I]
+# tris, chunk, tile_ranks, smem bytes; then the outputs, words, the three
+# counts and the stream
+_IN = [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I]
 _ARGTYPES = {"packet_closest": _IN + [_P] * 7,
              "packet_any": _IN + [_P] * 6}
 
@@ -245,6 +313,9 @@ def _launch(name, walk_tris, sub_box, cand, tnear, count, o, d, tmin, tmax,
         (tnear, torch.float32, (nb, maxc_pad)), (count, torch.int32, (nb,)),
         (sub_box, torch.float32, (6, n_chunks * n_sub)),
         (walk_tris, torch.float32, (n_chunks, 16, chunk))], o)
+    if walk_tris.data_ptr() % 16:
+        raise ValueError("walk_tris must be 16-byte aligned (cp.async)")
+    tile_ranks, n_bytes = smem_plan(chunk, block_rays, maxc_pad)
     n_words = _n_words(maxc_pad, chunk)
     words = (torch.zeros((nb, block_rays // PACKET, n_words),
                          dtype=torch.int32, device=o.device)
@@ -254,7 +325,8 @@ def _launch(name, walk_tris, sub_box, cand, tnear, count, o, d, tmin, tmax,
     o_p, d_p, tmin_p, tmax_p, cand_p, tnear_p, count_p, box_p, tris_p = ptrs
     _call(_fn, name, o.device, o_p, d_p, tmin_p, tmax_p,
           r, block_rays, cand_p, tnear_p, count_p, maxc_pad, box_p,
-          n_chunks, tris_p, chunk, *[x.data_ptr() for x in outs],
+          n_chunks, tris_p, chunk, tile_ranks, n_bytes,
+          *[x.data_ptr() for x in outs],
           0 if words is None else words.data_ptr(), counts[0].data_ptr(),
           counts[1].data_ptr(), counts[2].data_ptr())
     return counts, words

@@ -114,12 +114,17 @@ def test_launch_errors_raise(cuda):
     assert dk.closest_kernel.launches == before + 1
 
 
-def _walk_scene_rays(device, max_walk_chunks=None, size=(320, 240)):
+def _walk_scene_rays(device, max_walk_chunks=None, size=(320, 240),
+                     segments=(6, 12)):
     """The `diffuse` README scene cut to (6, 12) sphere segments (34 walk
-    chunks of 128, or 256-triangle chunks under a smaller MAX_WALK_CHUNKS)
-    and its camera's primary rays."""
+    chunks of 128, or 256-triangle chunks under a smaller MAX_WALK_CHUNKS;
+    segments=None: the full scene, 149 chunks) and its camera's primary
+    rays."""
     from optixpathtracer_tpu_torch.scene import flatten as flatten_mod
-    model, camera, lights = scene_material_test("diffuse", segments=(6, 12))
+    model, camera, lights = (scene_material_test("diffuse")
+                             if segments is None else
+                             scene_material_test("diffuse",
+                                                 segments=segments))
     saved = flatten_mod.MAX_WALK_CHUNKS
     if max_walk_chunks is not None:
         flatten_mod.MAX_WALK_CHUNKS = max_walk_chunks
@@ -202,19 +207,90 @@ def test_walk_launch_errors_raise(cuda):
         wk.candidates_kernel(boxes, o.cpu(), d, tmin, tmin)
 
 
-def _check_packet_kernels(scene, o, d, tmin, tmax, block_rays):
-    """Both packet kernels against the plain words and sweeps on one
-    query: words bit-identical, ids, t and blocked flags identical."""
+def _word_exit_tests(kind, walk_tris, cand, tnear, words, rays, block_rays):
+    """Ray-triangle tests per ray block of a packet sweep that exits only
+    at word ends, as the first CUDA port of the packet kernels did: closest
+    stops after word w once tnear of word w + 1's first rank exceeds the max
+    over live rays of min(best t, tmax); any sweeps until every live ray is
+    blocked, lane b testing triangles b + 32 m in order of m until a hit.
+    Built from the plain sweep's per-(packet, subchunk) hits."""
+    n_sub = walk_tris.shape[2] // pk.SUB
+    nb, packets, n_words = words.shape
+    bits = ((words[..., None] >> torch.arange(32, device=words.device)) & 1
+            ).view(nb * packets, -1)
+    packet, s = torch.nonzero(bits, as_tuple=True)
+    tmin, tmax = (pk._packets(x, block_rays).reshape(-1, pk.PACKET)
+                  for x in wk._blocked(*rays, block_rays)[2:])
+    live = tmax > tmin                                     # [P, 8]
+    n_live = live.sum(dim=1)
+    tests = torch.zeros(nb * packets, dtype=torch.long, device=words.device)
+    if packet.numel() == 0:
+        return tests.view(nb, packets).sum(dim=1)
+    hits = list(pk._pair_steps(walk_tris, words, cand, *rays, block_rays))
+    hit = torch.cat([h for _, _, _, h in hits])            # [pairs, 8, 128]
+    if kind == "closest":
+        t = torch.cat([torch.where(h, t, pk.BIG).amin(dim=2)
+                       for _, _, t, h in hits])           # [pairs, 8]
+        best = torch.full((nb * packets, n_words, pk.PACKET), pk.BIG,
+                          device=words.device)
+        idx = (packet * n_words + s // 32)[:, None].expand(-1, pk.PACKET)
+        best.view(-1, pk.PACKET).scatter_reduce_(0, idx, t, "amin")
+        best = best.cummin(dim=1).values
+        limit = torch.where(live[:, None], torch.minimum(best, tmax[:, None]),
+                            -float("inf")).amax(dim=2)    # [P, W]
+        j_next = ((torch.arange(n_words, device=words.device) + 1) * 32
+                  // n_sub).clamp(max=cand.shape[1] - 1)
+        blk = torch.arange(nb * packets, device=words.device) // packets
+        stop = tnear[blk][:, j_next] > limit
+        stop[:, -1] = True
+        last = stop.int().argmax(dim=1)                    # exit word
+        swept = s // 32 <= last[packet]
+        per_pair = n_live[packet] * pk.SUB
+    else:
+        h = hit.view(-1, pk.PACKET, pk.SUB // 32, 32)      # [pairs, 8, m, b]
+        before = h.int().cumsum(dim=2) - h.int()           # hits at m' < m
+        ray_tests = (before == 0).sum(dim=(2, 3))          # [pairs, 8]
+        ray_hit = h.any(dim=3).any(dim=2)                  # [pairs, 8]
+        # a packet's pairs are consecutive, in sweep order
+        seg = torch.cat([torch.ones(1, dtype=torch.bool, device=s.device),
+                         packet[1:] != packet[:-1]])
+        start = torch.cummax(torch.where(seg, torch.arange(
+            packet.numel(), device=s.device), 0), dim=0).values
+        cum = ray_hit.long().cumsum(dim=0)
+        base = (cum - ray_hit.long())[start]
+        blocked_after = (cum - base) > 0                   # [pairs, 8]
+        blocked_before = (cum - ray_hit.long() - base) > 0
+        open_ = live[packet] & ~blocked_before
+        all_blocked = (blocked_after | ~live[packet]).all(dim=1)
+        ended = all_blocked.long().cumsum(dim=0)
+        ended_before = ended - all_blocked.long() - (
+            ended - all_blocked.long())[start]
+        swept = (ended_before == 0) & open_.any(dim=1)
+        per_pair = (ray_tests * open_).sum(dim=1)
+    tests.index_add_(0, packet[swept], per_pair[swept].long())
+    tests[n_live == 0] = 0
+    return tests.view(nb, packets).sum(dim=1)
+
+
+def _sorted_rays(scene, o, d, tmin, tmax):
     perm = wk._coherence_perm(scene, o, d)
-    rays = [x[perm].contiguous() for x in (o, d, tmin, tmax)]
+    return [x[perm].contiguous() for x in (o, d, tmin, tmax)]
+
+
+def _check_packet_kernels(walk_tris, sub_box, boxes, rays, block_rays):
+    """Both packet kernels against the plain words and sweeps on one query
+    of (sorted) rays: words bit-identical, ids, t and blocked flags
+    identical, and no block running more tests than a sweep that exits
+    only at word ends. Returns (ids, blocked, closest tests, word-exit
+    closest tests)."""
+    chunk = walk_tris.shape[2]
     cand, tnear, count = wk.sort_candidates(
-        wk.candidates_kernel(wk._chunk_boxes(scene), *rays, block_rays))
-    args = (scene.walk_tris, scene.walk_sub_box, cand, tnear, count, *rays,
-            block_rays)
-    words = pk.packet_words_plain(scene.walk_sub_box, cand, tnear, *rays,
-                                  scene.walk_chunk, block_rays)[0]
+        wk.candidates_kernel(boxes, *rays, block_rays))
+    args = (walk_tris, sub_box, cand, tnear, count, *rays, block_rays)
+    words = pk.packet_words_plain(sub_box, cand, tnear, *rays, chunk,
+                                  block_rays)[0]
     kt, ki = pk.packet_closest_kernel(*args, with_words=True)
-    pt, pi = pk.packet_closest_plain(scene.walk_tris, cand, words, *rays,
+    pt, pi = pk.packet_closest_plain(walk_tris, cand, words, *rays,
                                      block_rays)
     torch.cuda.synchronize()
     assert torch.equal(pk.packet_closest_kernel.words, words)
@@ -222,40 +298,160 @@ def _check_packet_kernels(scene, o, d, tmin, tmax, block_rays):
     assert torch.equal(kt, pt)
     k = pk.packet_closest_kernel
     assert k.swept.shape == k.tests.shape == k.slabs.shape == count.shape
-    assert (k.tests <= k.swept * 8 * pk.SUB).all() and k.tests.sum() > 0
+    assert (k.tests <= k.swept * 8 * pk.SUB).all()
+    closest_tests = k.tests.long()
+    word_exit = _word_exit_tests("closest", walk_tris, cand, tnear, words,
+                                 rays, block_rays)
+    assert (closest_tests <= word_exit).all()
+    # the same answers without the words: the exit then skips them
+    kt2, ki2 = pk.packet_closest_kernel(*args)
+    assert torch.equal(ki2, pi) and torch.equal(kt2, pt)
+    assert torch.equal(k.tests.long(), closest_tests)
     kb = pk.packet_any_kernel(*args, with_words=True)
-    pb = pk.packet_any_plain(scene.walk_tris, cand, words, *rays, block_rays)
+    pb = pk.packet_any_plain(walk_tris, cand, words, *rays, block_rays)
     assert torch.equal(pk.packet_any_kernel.words, words)
     assert torch.equal(kb, pb)
-    assert not kb[rays[3] < 0].any()
-    return ki, kb
+    assert not kb[rays[3] <= rays[2]].any()  # dead rays are never blocked
+    assert (pk.packet_any_kernel.tests.long() <= _word_exit_tests(
+        "any", walk_tris, cand, tnear, words, rays, block_rays)).all()
+    assert torch.equal(pk.packet_any_kernel(*args), pb)
+    return ki, kb, closest_tests, word_exit
 
 
-@pytest.mark.parametrize("block_rays,max_walk_chunks", [
-    (256, None), (1024, None), (256, 20)])
-def test_packet_kernels_match_plain(cuda, block_rays, max_walk_chunks):
+def _dead_packets(rays, block_rays):
+    """Cut 13 rays off the end (the last block is part padding) and kill
+    whole packets of the sorted rays: packets 1-2 with tmax = -1, packet 3
+    with tmax = tmin = 0.5 (slab tests may pass, no ray can hit)."""
+    o, d, tmin, tmax = (x[:-13].clone() for x in rays)
+    tmax[8:24] = -1.0
+    tmin[24:32] = 0.5
+    tmax[24:32] = 0.5
+    return [o, d, tmin, tmax]
+
+
+@pytest.mark.parametrize("block_rays,max_walk_chunks,one_word_tiles", [
+    (256, None, False), (1024, None, False), (256, 20, False),
+    (256, None, True), (1024, None, True)])
+def test_packet_kernels_match_plain(cuda, monkeypatch, block_rays,
+                                    max_walk_chunks, one_word_tiles):
     """At chunk 128 and (MAX_WALK_CHUNKS = 20) at chunk 256, on primaries
-    and on scattered rays from the hit points, with dead lanes."""
-    scene, o, d = _walk_scene_rays(cuda, max_walk_chunks)
-    assert scene.walk_chunk == (128 if max_walk_chunks is None else 256)
+    (where the closest sweep exits mid-word) and on scattered rays from the
+    hit points, with dead lanes, dead packets and rays past the end. With
+    one_word_tiles, on the full `diffuse` scene (149 chunks), the
+    shared-memory budget leaves room for one word of the union a tile, so
+    a block with more than 32 candidates sweeps several tiles."""
+    scene, o, d = _walk_scene_rays(cuda, max_walk_chunks,
+                                   segments=None if one_word_tiles
+                                   else (6, 12))
+    chunk = scene.walk_chunk
+    assert chunk == (128 if max_walk_chunks is None else 256)
+    maxc_pad = -(-scene.walk_tris.shape[0] // wk.LANES) * wk.LANES
+    if one_word_tiles:
+        step = 32 * pk.SUB // chunk
+        monkeypatch.setattr(pk, "SMEM_BUDGET",
+                            pk.smem_bytes(step, chunk, block_rays))
+        assert pk.smem_plan(chunk, block_rays, maxc_pad)[0] == step
+    tile = pk.smem_plan(chunk, block_rays, maxc_pad)[0]
     r = o.shape[0]
     tmin = torch.zeros(r, device=cuda)
     tmax = torch.full((r,), 100.0, device=cuda)
     tmax[::11] = -1.0
-    ki, kb = _check_packet_kernels(scene, o, d, tmin, tmax, block_rays)
+    boxes = wk._chunk_boxes(scene)
+    rays = _sorted_rays(scene, o, d, tmin, tmax)
+    args = (scene.walk_tris, scene.walk_sub_box, boxes)
+    ki, kb, tests, word_exit = _check_packet_kernels(*args, rays, block_rays)
     assert (ki >= 0).any() and (ki < 0).any() and kb.any()
+    assert tests.sum() < word_exit.sum()  # exits inside words
+    _check_packet_kernels(*args, _dead_packets(rays, block_rays), block_rays)
     hit = wk.intersect_closest(scene, o, d, 0.0, 100.0)
     gen = torch.Generator(device="cpu").manual_seed(0)
     dirs = torch.randn((r, 3), generator=gen).to(cuda)
     dirs = dirs / dirs.norm(dim=1, keepdim=True)
     origins = (o + hit.t[:, None] * d + 1e-3 * dirs).contiguous()
     tmax = torch.where(hit.hit, 5.0, -1.0)
-    _check_packet_kernels(scene, origins, dirs.contiguous(), tmin, tmax,
-                          block_rays)
+    rays = _sorted_rays(scene, origins, dirs.contiguous(), tmin, tmax)
+    _check_packet_kernels(*args, rays, block_rays)
+    count = wk.sort_candidates(wk.candidates_kernel(boxes, *rays,
+                                                    block_rays))[2]
+    if one_word_tiles:
+        assert int(count.max()) > tile  # two tiles or more
     from optixpathtracer_tpu_torch.intersect import brute
     got = pk.intersect_closest(scene, origins, dirs, 0.0, tmax, block_rays)
     want = brute.intersect_closest(scene, origins, dirs, 0.0, tmax)
     assert torch.equal(got.tri_id, want.tri_id)
+
+
+def _walk_layout(v0, e1, e2, chunk, device):
+    """walk_tris [C, 16, chunk], subchunk boxes [6, C * n_sub] and chunk
+    boxes [6, C] of triangles laid out in the given order (v0 = 1e10 rows
+    are padding: no box, as flatten pads)."""
+    n = v0.shape[0]
+    assert n % chunk == 0
+    walk = np.zeros((n // chunk, 16, chunk), np.float32)
+    tris = np.concatenate([v0, e1, e2], axis=1).astype(np.float32)
+    walk[:, :9] = tris.reshape(n // chunk, chunk, 9).transpose(0, 2, 1)
+    valid = v0[:, 0] < 1e9
+    big = np.float32(3.4e38)
+    vs = np.stack([v0, v0 + e1, v0 + e2]).astype(np.float32)
+    lo = np.where(valid[:, None], vs.min(axis=0), big)
+    hi = np.where(valid[:, None], vs.max(axis=0), -big)
+
+    def boxes(size):
+        b_lo = lo.reshape(-1, size, 3).min(axis=1)
+        b_hi = hi.reshape(-1, size, 3).max(axis=1)
+        empty = b_lo[:, :1] > b_hi[:, :1]
+        return np.concatenate([np.where(empty, big, b_lo).T,
+                               np.where(empty, big, b_hi).T])
+
+    return tuple(torch.tensor(np.ascontiguousarray(x), device=device)
+                 for x in (walk, boxes(pk.SUB), boxes(chunk)))
+
+
+@pytest.mark.parametrize("chunk,block_rays", [(128, 256), (256, 256),
+                                              (128, 1024), (256, 1024)])
+def test_packet_ties_across_words(cuda, chunk, block_rays):
+    """Two coincident triangles, the higher id in the first candidate and
+    the lower id 41 ranks later (another word), 40 chunks between them
+    that every ray's box test passes and whose triangles lie behind: both
+    kernels return the lower id, as the plain versions do."""
+    n_chunks = 64
+    v0 = np.full((n_chunks * chunk, 3), 1e10, np.float32)
+    e1 = np.zeros_like(v0)
+    e2 = np.zeros_like(v0)
+
+    def put(c, slot, a, b, c_):
+        i = c * chunk + slot
+        v0[i], e1[i], e2[i] = a, np.subtract(b, a), np.subtract(c_, a)
+
+    tri = ((-4.0, -4.0, 10.0), (4.0, -4.0, 10.0), (-4.0, 4.0, 10.0))
+    late, early = 2, 50            # chunk ids: the lower id comes later
+    put(early, chunk - 9, *tri)    # last subchunk of its chunk
+    put(early, 3, (3.0, 3.0, 1.0), (3.1, 3.0, 1.0), (3.0, 3.1, 1.0))
+    put(late, 5, *tri)
+    put(late, 6, (3.0, 3.0, 9.5), (3.1, 3.0, 9.5), (3.0, 3.1, 9.5))
+    for i in range(40):            # box entry at z 5 .. 9, hit beyond T
+        put(8 + i, 0, (4.0, 0.0, 5.0 + 0.1 * i), (-4.0, -4.5, 20.0),
+            (-4.0, 4.5, 20.0))
+    walk_tris, sub_box, boxes = _walk_layout(v0, e1, e2, chunk, cuda)
+    rng = np.random.default_rng(3)
+    n = 3 * block_rays - 5
+    target = np.concatenate([rng.uniform(-2.0, -0.2, (n, 2)),
+                             np.full((n, 1), 10.0)], axis=1)
+    o = rng.normal(0.0, 0.01, (n, 3))
+    d = target - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = np.full(n, 100.0)
+    tmax[::7] = 12.0
+    rays = [torch.tensor(x, dtype=torch.float32, device=cuda).contiguous()
+            for x in (o, d, np.zeros(n), tmax)]
+    ki, kb, _, _ = _check_packet_kernels(walk_tris, sub_box, boxes, rays,
+                                         block_rays)
+    assert (ki == late * chunk + 5).all()
+    assert kb.all()
+    cand = wk.sort_candidates(wk.candidates_kernel(boxes, *rays,
+                                                   block_rays))[0]
+    rank = (cand == late).int().argmax(dim=1)
+    assert ((cand[:, 0] == early) & (rank == 41)).all()
 
 
 def test_hall_small_packet_render_matches_plain(cuda):

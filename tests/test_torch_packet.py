@@ -291,3 +291,72 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(packet_case):
             kernel(*args, *rays, block_rays=100)
     assert counts == (packet_kernels.packet_closest_kernel.launches,
                       packet_kernels.packet_any_kernel.launches)
+
+
+def _walk_shape(n_tris):
+    """(chunk, maxc_pad) of the walk layout `flatten` builds for n_tris
+    triangles."""
+    from optixpathtracer_tpu_torch.scene import flatten as tflatten_mod
+    t_pad = -(-n_tris // tflatten_mod.PAD_MULTIPLE) * tflatten_mod.PAD_MULTIPLE
+    chunk = tflatten_mod._walk_chunk_size(t_pad)
+    n_chunks = -(-t_pad // chunk)
+    return chunk, -(-n_chunks // walk_kernels.LANES) * walk_kernels.LANES
+
+
+@pytest.mark.parametrize("block_rays", walk_kernels.BLOCK_SIZES)
+def test_smem_plan_fits_every_preset(block_rays):
+    """For every PRESETS scene (its whole triangle count: a cutout scene's
+    sub-scenes are smaller): the kernels' shared memory stays within the
+    budget that lets CTAS_PER_SM CTAs share an SM and under the 227 KB a
+    CTA may take, a tile holds whole words, and the tiles cover ranks
+    [0, count) once each in order."""
+    from optixpathtracer_tpu_torch.scene.procedural import PRESETS
+    pk = packet_kernels
+    shapes = {_walk_shape(sum(len(m.indices) for m in make()[0].meshes))
+              for make in PRESETS.values()}
+    assert (256, 1408) in shapes  # hall: 1,322 chunks of 256
+    for chunk, maxc_pad in shapes:
+        tile, n_bytes = pk.smem_plan(chunk, block_rays, maxc_pad)
+        n_sub = chunk // pk.SUB
+        assert n_bytes == pk.smem_bytes(tile, chunk, block_rays)
+        assert n_bytes <= pk.SMEM_BUDGET < pk.SMEM_MAX == 227 * 1024
+        assert pk.CTAS_PER_SM * (n_bytes + 1024) <= pk.SM_SHARED
+        assert tile * n_sub % 32 == 0 and 0 < tile
+        assert tile >= maxc_pad or pk.smem_bytes(
+            tile + 32 // n_sub, chunk, block_rays) > pk.SMEM_BUDGET
+        for count in {0, 1, tile - 1, tile, tile + 1, 2 * tile + 3,
+                      maxc_pad}:
+            if not 0 <= count <= maxc_pad:
+                continue
+            tiles = pk.union_tiles(count, tile)
+            assert [j for j0, j1 in tiles for j in range(j0, j1)] == \
+                list(range(count))
+            assert all(0 < j1 - j0 <= tile for j0, j1 in tiles)
+            assert len(tiles) == -(-count // tile)
+
+
+def test_smem_plan_budget_and_grid():
+    """A budget of one word's tile gives that tile (the on-card tests use
+    it to sweep several tiles); less than that is refused; the grid is one
+    CTA of WARPS warps per ray block; and the constants mirror the CUDA
+    source's."""
+    import os
+    import re
+    pk = packet_kernels
+    for chunk in (128, 256, 384):
+        step = 32 // np.gcd(32, chunk // pk.SUB)
+        one = pk.smem_bytes(step, chunk, 256)
+        assert pk.smem_plan(chunk, 256, 1408, budget=one) == (step, one)
+        assert pk.smem_plan(chunk, 256, 8, budget=one)[0] == step
+        with pytest.raises(ValueError):
+            pk.smem_plan(chunk, 256, 1408, budget=one - 16)
+    assert pk.smem_plan(256, 256, 1408)[0] < 1408  # hall's row: 3 tiles
+    assert pk.grid(1920 * 1080, 256) == (8100, pk.WARPS * 32)
+    assert pk.grid(1000, 1024) == (1, pk.WARPS * 32)
+    src = open(os.path.join(os.path.dirname(pk.__file__), os.pardir, "csrc",
+                            "packet_intersect.cu")).read()
+    for const, value in (("kWarps", pk.WARPS), ("kCtasPerSm", pk.CTAS_PER_SM),
+                         ("kRows", pk.ROWS), ("kSub", pk.SUB),
+                         ("kPacket", pk.PACKET)):
+        assert re.search(rf"constexpr int {const} = (\d+);",
+                         src).group(1) == str(value)
