@@ -71,9 +71,11 @@
 //      from there: each lane's nine loads a test are shared-memory loads,
 //      four distinct words a warp, instead of L1/L2 loads. No copy is kept
 //      in flight ahead of the tests: with 32 warps an SM the others hide
-//      the wait, and a second stage cost more (registers, shared memory)
-//      than it saved. Copies are per warp: packets of a block set different
-//      bits, so a shared copy would make warps wait for each other.
+//      the wait. A second stage takes the CTA from 56 to ~93 KB, so 2 CTAs
+//      an SM: 13-17% slower; at equal occupancy it bought nothing for
+//      closest and 3% for any. Copies are per warp: packets of a block set
+//      different bits, so a shared copy would make warps wait for each
+//      other.
 //      Share: read from L1/L2 instead, closest takes 34% (24%) longer and
 //      any 52% (51%).
 //   4. Idle warps. A warp that finishes a packet takes the block's next one

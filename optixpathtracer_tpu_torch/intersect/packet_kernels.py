@@ -236,38 +236,36 @@ def _align16(n):
     return -(-n // 16) * 16
 
 
-def smem_bytes(tile_ranks, chunk, block_rays, warps=WARPS):
+def smem_bytes(tile_ranks, chunk, block_rays):
     """Dynamic shared memory of one CTA holding a tile of `tile_ranks`
     candidate ranks: the kernels' `Smem` layout (each section 16-byte
     aligned): the warps' staged subchunks and packet rays, the tile's
     subchunk boxes, cand and tnear, and every packet's answer so far."""
     n_sub, packets = _n_sub(chunk), block_rays // PACKET
-    sizes = (warps * ROWS * SUB * 4, warps * PACKET * 3 * 16,
+    sizes = (WARPS * ROWS * SUB * 4, WARPS * PACKET * 3 * 16,
              6 * tile_ranks * n_sub * 4, tile_ranks * 4, tile_ranks * 4,
              packets * PACKET * 4, packets * PACKET * 4, packets * 4, 4 * 4)
     return sum(_align16(x) for x in sizes)
 
 
-def smem_plan(chunk, block_rays, maxc_pad, warps=WARPS, budget=None):
+def smem_plan(chunk, block_rays, maxc_pad):
     """(tile_ranks, bytes) of a launch: the most candidate ranks a tile of
-    the union holds within `budget` bytes of shared memory (SMEM_BUDGET),
-    never more than the row (maxc_pad), in steps that keep a tile's
-    subchunks whole words (tile_ranks * n_sub a multiple of 32)."""
-    budget = SMEM_BUDGET if budget is None else budget
+    the union holds within SMEM_BUDGET bytes of shared memory, never more
+    than the row (maxc_pad), in steps that keep a tile's subchunks whole
+    words (tile_ranks * n_sub a multiple of 32)."""
     n_sub = _n_sub(chunk)
     step = 32 // math.gcd(32, n_sub)
-    per_step = smem_bytes(step, chunk, block_rays, warps) - smem_bytes(
-        0, chunk, block_rays, warps)
-    fit = (budget - smem_bytes(0, chunk, block_rays, warps)) // per_step
+    per_step = smem_bytes(step, chunk, block_rays) - smem_bytes(
+        0, chunk, block_rays)
+    fit = (SMEM_BUDGET - smem_bytes(0, chunk, block_rays)) // per_step
     tile = min(max(fit, 1), -(-maxc_pad // step)) * step
-    while tile > step and smem_bytes(tile, chunk, block_rays,
-                                     warps) > budget:
+    while tile > step and smem_bytes(tile, chunk, block_rays) > SMEM_BUDGET:
         tile -= step
-    n_bytes = smem_bytes(tile, chunk, block_rays, warps)
-    if n_bytes > min(budget, SMEM_MAX):
+    n_bytes = smem_bytes(tile, chunk, block_rays)
+    if n_bytes > min(SMEM_BUDGET, SMEM_MAX):
         raise ValueError(f"chunk {chunk}, block_rays {block_rays}: one tile "
                          f"of the union needs {n_bytes} bytes of shared "
-                         f"memory, over {min(budget, SMEM_MAX)}")
+                         f"memory, over {min(SMEM_BUDGET, SMEM_MAX)}")
     return tile, n_bytes
 
 
@@ -278,9 +276,9 @@ def union_tiles(count, tile_ranks):
             for j0 in range(0, count, tile_ranks)]
 
 
-def grid(n_rays, block_rays, warps=WARPS):
+def grid(n_rays, block_rays):
     """(CTAs, threads a CTA) of a launch: one CTA per ray block."""
-    return _n_blocks(n_rays, block_rays), warps * 32
+    return _n_blocks(n_rays, block_rays), WARPS * 32
 
 
 _P = ctypes.c_void_p

@@ -3,14 +3,15 @@
 each other on the `hall` wavefronts where the packet engine runs, in one
 process on one NVIDIA GPU.
 
-    python3 packet_bench.py [NAME=PATH.cu ...] [--one-warp NAME=PATH.cu ...]
+    python3 packet_bench.py [NAME=PATH.cu ...]
 
 The repository's own source is always measured, as "current". Each other
 PATH is a version of csrc/packet_intersect.cu with the same two C entry
-points; with --one-warp, the entry points of the one-warp-per-packet
-version (no tile_ranks and smem_bytes arguments, no shared-memory plan).
-Every version is compiled with the port's nvcc flags (one nvcc per source,
-all started together) and its ptxas report printed.
+points, launched with the current source's shared-memory plan
+(packet_kernels.smem_plan); a version that needs more shared memory adds
+it in its own entry points. Every version is compiled with the port's nvcc
+flags (one nvcc per source, all started together) and its ptxas report
+printed.
 
 On the bounce-0 and bounce-1 closest and shadow wavefronts of one 1080p
 `hall` frame (chip_smoke.frame_waves), after the walk engine's coherence
@@ -28,7 +29,6 @@ import ctypes
 import hashlib
 import json
 import os
-import re
 import subprocess
 import sys
 import time
@@ -44,7 +44,7 @@ def build(variants):
     from optixpathtracer_tpu_torch import _build
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     procs = {}
-    for name, (path, _) in variants.items():
+    for name, path in variants.items():
         with open(path, "rb") as f:
             digest = hashlib.sha1(f.read()).hexdigest()[:12]
         out = os.path.join(_build.BUILD_DIR, f"variant-{name}-{digest}.so")
@@ -63,41 +63,15 @@ def build(variants):
     return libs
 
 
-def source_constants(path):
-    """(warps, staged subchunks a warp, CTAs an SM) a version's source
-    declares: kWarps, kStages (1 if absent) and the minimum of its
-    __launch_bounds__ (a number or a constant)."""
-    with open(path) as f:
-        src = f.read()
-
-    def const(name, default=None):
-        m = re.search(rf"constexpr int {name} = (\d+);", src)
-        return int(m.group(1)) if m else default
-
-    ctas = re.search(r"__launch_bounds__\(kWarps \* 32, (\w+)\)",
-                     src).group(1)
-    return (const("kWarps"), const("kStages", 1),
-            int(ctas) if ctas.isdigit() else const(ctas))
-
-
-def launcher(lib, path, one_warp):
+def launcher(lib):
     """launch(kind, walk_tris, sub_box, cand, tnear, count, o, d, tmin, tmax)
-    -> (output, counts [3, n_blocks]) for one compiled version. A version
-    with a shared-memory plan gets one sized as packet_kernels.smem_plan
-    sizes the current source's, from its own constants (a version staging
-    more subchunks a warp is planned as that many more warps: a few KB more
-    than it needs)."""
+    -> (output, counts [3, n_blocks]) for one compiled version."""
     import torch
     from optixpathtracer_tpu_torch.intersect import packet_kernels as pk
-    warps, stages, ctas = (None, 1, None) if one_warp else \
-        source_constants(path)
     fns = {}
     for kind, name in (("closest", "packet_closest"), ("any", "packet_any")):
         fn = getattr(lib, name)
-        args = list(pk._ARGTYPES[name])
-        if one_warp:
-            del args[14:16]  # tile_ranks, smem_bytes
-        fn.argtypes, fn.restype = args, ctypes.c_int
+        fn.argtypes, fn.restype = pk._ARGTYPES[name], ctypes.c_int
         fns[kind] = fn
 
     def launch(kind, walk_tris, sub_box, cand, tnear, count, o, d, tmin,
@@ -110,9 +84,7 @@ def launcher(lib, path, one_warp):
                 if kind == "closest" else
                 (torch.empty(r, dtype=torch.int32, device=o.device),))
         counts = torch.zeros((3, nb), dtype=torch.int32, device=o.device)
-        plan = [] if one_warp else list(pk.smem_plan(
-            chunk, block_rays, maxc_pad, warps * stages,
-            budget=pk.SM_SHARED // ctas - 1024))
+        plan = pk.smem_plan(chunk, block_rays, maxc_pad)
         ptrs = [x.data_ptr() for x in (o, d, tmin, tmax)]
         err = fns[kind](
             *ptrs, r, block_rays, cand.data_ptr(), tnear.data_ptr(),
@@ -136,24 +108,15 @@ def main(argv):
     from optixpathtracer_tpu_torch.scene import flatten_model
     from optixpathtracer_tpu_torch.scene.procedural import PRESETS
 
-    variants = {"current": (os.path.join(_build.CSRC, "packet_intersect.cu"),
-                            False)}
-    one_warp = False
-    for arg in argv:
-        if arg == "--one-warp":
-            one_warp = True
-            continue
-        name, path = arg.split("=", 1)
-        variants[name] = (path, one_warp)
-        one_warp = False
+    variants = {"current": os.path.join(_build.CSRC, "packet_intersect.cu")}
+    variants.update(arg.split("=", 1) for arg in argv)
     card = cs.Card()
     cs.log(f"card: {card.name_power}, max SM clock {card.max_sm_mhz:.0f} MHz"
            f"; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     libs = build(variants)
     cs.log(f"{len(libs)} versions built in {time.perf_counter() - t0:.1f} s")
-    launch = {name: launcher(libs[name], path, ow)
-              for name, (path, ow) in variants.items()}
+    launch = {name: launcher(lib) for name, lib in libs.items()}
 
     dev = torch.device("cuda")
     model, camera, lights = PRESETS["hall"]()

@@ -207,13 +207,18 @@ def test_walk_launch_errors_raise(cuda):
         wk.candidates_kernel(boxes, o.cpu(), d, tmin, tmin)
 
 
-def _word_exit_tests(kind, walk_tris, cand, tnear, words, rays, block_rays):
+def _word_exit_tests(kind, walk_tris, cand, tnear, words, rays, block_rays,
+                     per_subchunk=False):
     """Ray-triangle tests per ray block of a packet sweep that exits only
     at word ends, as the first CUDA port of the packet kernels did: closest
     stops after word w once tnear of word w + 1's first rank exceeds the max
     over live rays of min(best t, tmax); any sweeps until every live ray is
     blocked, lane b testing triangles b + 32 m in order of m until a hit.
-    Built from the plain sweep's per-(packet, subchunk) hits."""
+    With per_subchunk (closest only), the sweep the kernel runs: it stops
+    before the first set subchunk whose rank's tnear exceeds that limit
+    over the subchunks swept before it. Built from the plain sweep's
+    per-(packet, subchunk) hits; a swept subchunk costs 128 tests a live
+    ray of the closest sweep."""
     n_sub = walk_tris.shape[2] // pk.SUB
     nb, packets, n_words = words.shape
     bits = ((words[..., None] >> torch.arange(32, device=words.device)) & 1
@@ -228,7 +233,29 @@ def _word_exit_tests(kind, walk_tris, cand, tnear, words, rays, block_rays):
         return tests.view(nb, packets).sum(dim=1)
     hits = list(pk._pair_steps(walk_tris, words, cand, *rays, block_rays))
     hit = torch.cat([h for _, _, _, h in hits])            # [pairs, 8, 128]
-    if kind == "closest":
+    # a packet's pairs are consecutive, in sweep order
+    pair = torch.arange(packet.numel(), device=s.device)
+    seg = torch.cat([torch.ones(1, dtype=torch.bool, device=s.device),
+                     packet[1:] != packet[:-1]])
+    start = torch.cummax(torch.where(seg, pair, 0), dim=0).values
+    blk = torch.arange(nb * packets, device=words.device) // packets
+    if kind == "closest" and per_subchunk:
+        t = torch.cat([torch.where(h, t, pk.BIG).amin(dim=2)
+                       for _, _, t, h in hits])           # [pairs, 8]
+        pos = pair - start
+        dense = torch.full((nb * packets, int(pos.max()) + 1, pk.PACKET),
+                           pk.BIG, device=words.device)
+        dense[packet, pos] = t
+        before = torch.cat([torch.full_like(dense[:, :1], pk.BIG),
+                            dense.cummin(dim=1).values[:, :-1]], dim=1)
+        limit = torch.where(live[packet],
+                            torch.minimum(before[packet, pos], tmax[packet]),
+                            -float("inf")).amax(dim=1)    # [pairs]
+        stop = (tnear[blk[packet], s // n_sub] > limit).long()
+        cum = stop.cumsum(dim=0)
+        swept = cum - (cum - stop)[start] == 0
+        per_pair = n_live[packet] * pk.SUB
+    elif kind == "closest":
         t = torch.cat([torch.where(h, t, pk.BIG).amin(dim=2)
                        for _, _, t, h in hits])           # [pairs, 8]
         best = torch.full((nb * packets, n_words, pk.PACKET), pk.BIG,
@@ -240,7 +267,6 @@ def _word_exit_tests(kind, walk_tris, cand, tnear, words, rays, block_rays):
                             -float("inf")).amax(dim=2)    # [P, W]
         j_next = ((torch.arange(n_words, device=words.device) + 1) * 32
                   // n_sub).clamp(max=cand.shape[1] - 1)
-        blk = torch.arange(nb * packets, device=words.device) // packets
         stop = tnear[blk][:, j_next] > limit
         stop[:, -1] = True
         last = stop.int().argmax(dim=1)                    # exit word
@@ -251,11 +277,6 @@ def _word_exit_tests(kind, walk_tris, cand, tnear, words, rays, block_rays):
         before = h.int().cumsum(dim=2) - h.int()           # hits at m' < m
         ray_tests = (before == 0).sum(dim=(2, 3))          # [pairs, 8]
         ray_hit = h.any(dim=3).any(dim=2)                  # [pairs, 8]
-        # a packet's pairs are consecutive, in sweep order
-        seg = torch.cat([torch.ones(1, dtype=torch.bool, device=s.device),
-                         packet[1:] != packet[:-1]])
-        start = torch.cummax(torch.where(seg, torch.arange(
-            packet.numel(), device=s.device), 0), dim=0).values
         cum = ray_hit.long().cumsum(dim=0)
         base = (cum - ray_hit.long())[start]
         blocked_after = (cum - base) > 0                   # [pairs, 8]
@@ -280,9 +301,11 @@ def _sorted_rays(scene, o, d, tmin, tmax):
 def _check_packet_kernels(walk_tris, sub_box, boxes, rays, block_rays):
     """Both packet kernels against the plain words and sweeps on one query
     of (sorted) rays: words bit-identical, ids, t and blocked flags
-    identical, and no block running more tests than a sweep that exits
-    only at word ends. Returns (ids, blocked, closest tests, word-exit
-    closest tests)."""
+    identical; the closest kernel's tests per block exactly those of its
+    per-subchunk exit, and no block running more tests than a sweep that
+    exits only at word ends; the occlusion kernel's at least one a swept
+    subchunk and one a blocked ray. Returns (ids, blocked, closest tests,
+    word-exit closest tests)."""
     chunk = walk_tris.shape[2]
     cand, tnear, count = wk.sort_candidates(
         wk.candidates_kernel(boxes, *rays, block_rays))
@@ -298,8 +321,12 @@ def _check_packet_kernels(walk_tris, sub_box, boxes, rays, block_rays):
     assert torch.equal(kt, pt)
     k = pk.packet_closest_kernel
     assert k.swept.shape == k.tests.shape == k.slabs.shape == count.shape
-    assert (k.tests <= k.swept * 8 * pk.SUB).all()
+    assert (k.tests <= k.swept * 8 * pk.SUB).all() and k.tests.sum() > 0
+    assert (k.tests >= k.swept * pk.SUB).all()  # a live ray a packet swept
     closest_tests = k.tests.long()
+    assert torch.equal(closest_tests, _word_exit_tests(
+        "closest", walk_tris, cand, tnear, words, rays, block_rays,
+        per_subchunk=True))
     word_exit = _word_exit_tests("closest", walk_tris, cand, tnear, words,
                                  rays, block_rays)
     assert (closest_tests <= word_exit).all()
@@ -312,8 +339,15 @@ def _check_packet_kernels(walk_tris, sub_box, boxes, rays, block_rays):
     assert torch.equal(pk.packet_any_kernel.words, words)
     assert torch.equal(kb, pb)
     assert not kb[rays[3] <= rays[2]].any()  # dead rays are never blocked
-    assert (pk.packet_any_kernel.tests.long() <= _word_exit_tests(
+    ka = pk.packet_any_kernel
+    assert (ka.tests.long() <= _word_exit_tests(
         "any", walk_tris, cand, tnear, words, rays, block_rays)).all()
+    n_blocked = torch.zeros(count.shape[0] * block_rays, dtype=torch.int32,
+                            device=kb.device)
+    n_blocked[:kb.shape[0]] = kb
+    assert (ka.tests >= torch.maximum(
+        ka.swept, n_blocked.view(-1, block_rays).sum(dim=1))).all()
+    assert ka.tests.sum() > 0
     assert torch.equal(pk.packet_any_kernel(*args), pb)
     return ki, kb, closest_tests, word_exit
 

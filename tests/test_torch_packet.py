@@ -335,22 +335,24 @@ def test_smem_plan_fits_every_preset(block_rays):
             assert len(tiles) == -(-count // tile)
 
 
-def test_smem_plan_budget_and_grid():
-    """A budget of one word's tile gives that tile (the on-card tests use
+def test_smem_plan_budget_and_grid(monkeypatch):
+    """A budget of one word's tile gives that tile (the on-card tests set
     it to sweep several tiles); less than that is refused; the grid is one
     CTA of WARPS warps per ray block; and the constants mirror the CUDA
     source's."""
     import os
     import re
     pk = packet_kernels
+    assert pk.smem_plan(256, 256, 1408)[0] < 1408  # hall's row: 3 tiles
     for chunk in (128, 256, 384):
         step = 32 // np.gcd(32, chunk // pk.SUB)
         one = pk.smem_bytes(step, chunk, 256)
-        assert pk.smem_plan(chunk, 256, 1408, budget=one) == (step, one)
-        assert pk.smem_plan(chunk, 256, 8, budget=one)[0] == step
+        monkeypatch.setattr(pk, "SMEM_BUDGET", one)
+        assert pk.smem_plan(chunk, 256, 1408) == (step, one)
+        assert pk.smem_plan(chunk, 256, 8)[0] == step
+        monkeypatch.setattr(pk, "SMEM_BUDGET", one - 16)
         with pytest.raises(ValueError):
-            pk.smem_plan(chunk, 256, 1408, budget=one - 16)
-    assert pk.smem_plan(256, 256, 1408)[0] < 1408  # hall's row: 3 tiles
+            pk.smem_plan(chunk, 256, 1408)
     assert pk.grid(1920 * 1080, 256) == (8100, pk.WARPS * 32)
     assert pk.grid(1000, 1024) == (1, pk.WARPS * 32)
     src = open(os.path.join(os.path.dirname(pk.__file__), os.pardir, "csrc",
