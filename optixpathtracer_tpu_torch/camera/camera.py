@@ -119,13 +119,24 @@ def generate_rays(position, inv_view, inv_proj, width, height):
     x_ndc = div(xs + 0.5, float(width)) * 2.0 - 1.0
     y_ndc = div(ys + 0.5, float(height)) * 2.0 - 1.0
     one = torch.ones_like(x_ndc)
-    ndc = torch.stack([x_ndc, y_ndc, one, one], dim=-1)
-    # The two 4x4 products run in float64 and round once to float32, so
-    # every device gets the same rays: in float32, cuBLAS and the CPU's BLAS
-    # sum the four products differently and part by up to 12 ulp in the
-    # normalised direction (never TF32 either, which would move rays ~1e-3).
-    p_view = (ndc.double() @ inv_proj.double().T).float()
-    p_view[..., 3] = 0.0  # a direction: drop w
-    p_world = (p_view.double() @ inv_view.double().T).float()
-    d = normalize(p_world[..., :3])
+    ndc = (x_ndc, y_ndc, one, one)
+    p_view = _mat_vec(inv_proj, ndc)
+    p_view[3] = torch.zeros_like(x_ndc)  # a direction: drop w
+    p_world = _mat_vec(inv_view, p_view)
+    d = normalize(torch.stack(p_world[:3], dim=-1))
     return position.expand_as(d), d
+
+
+def _mat_vec(m, x):
+    """The reference's float32 `x @ m.T` for the 4-vectors x = (x0, x1, x2,
+    x3): row j is x0*m[j,0] + x1*m[j,1] + x2*m[j,2] + x3*m[j,3], each
+    product and sum rounded to float32 in index order. Elementwise, with no
+    BLAS (cuBLAS and the CPU's BLAS order and fuse the sums differently)
+    and no float64, so every device rounds as the reference does."""
+    out = []
+    for j in range(4):
+        acc = x[0] * m[j, 0]
+        for k in range(1, 4):
+            acc = acc + x[k] * m[j, k]
+        out.append(acc)
+    return out

@@ -352,3 +352,21 @@ def test_hall_frame_matches_reference(hall_frames, method):
                       intersect_method=method).numpy()
     assert img.mean() > 0.05
     assert_images_match(img, want)
+
+
+def test_hall_small_frame_matches_reference_op_by_op(hall_small):
+    """hall_small's rotated camera at 12x12, 1 spp, 2 bounces, brute,
+    against the reference run op by op, by the engine-golden criterion:
+    the camera rays are bit-identical, so only the sRGB decode's float32
+    pow (within 3 ulp) parts the two frames."""
+    with jax.disable_jit():
+        jmodel, jcamera, jlights = JPRESETS["hall_small"]()
+        want = np.asarray(jrender(jflatten(jmodel, jlights), jcamera, 12, 12,
+                                  spp=1, max_bounces=2,
+                                  intersect_method="brute"))
+    _, (model, camera, lights) = hall_small
+    scene = flatten_model(model, lights, device="cpu")
+    img = path.render(scene, camera, 12, 12, spp=1, max_bounces=2,
+                      intersect_method="brute").numpy()
+    assert img.mean() > 0.05
+    assert_images_match(img, want)
