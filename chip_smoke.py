@@ -41,13 +41,20 @@ runs the dense closest kernel over the 40-triangle cutout sub-scene).
    ray-triangle tests the sweeps report running (and the packet kernels'
    ray-subchunk slab tests) times the FP32 operations of one test, over
    132 SMs x 128 lanes at the card's max SM clock, or the bytes over
-   3.35 TB/s, whichever is larger.
+   3.35 TB/s, whichever is larger. For the dense kernels the tests are
+   those the inputs need, from the plain count model
+   `dense_kernels.needed_work` (live rays, real triangles, occlusion up
+   to the first blocker), which the kernels' own counts must equal. Each
+   kernel's row is at the wavefront the frame first runs it on: closest
+   and candidates at the primary wavefront (hall's dense closest at its
+   first cutout chain, packet at bounce 1), occlusion at the bounce-0
+   shadow wavefront, with the other wavefronts listed.
 2. Path phase. `render` (method "auto") of each cell at 1920x1080 with
    every launch counter zeroed just before and read just after; each
    cell's kernels must have launched and the image must be finite and
    non-negative. Mrays/s with bench.py's accounting (pixels x spp x
-   bounces x 2 / seconds). Then torch.profiler over one 1-spp frame of the
-   walk cells and hall.
+   bounces x 2 / seconds). Then torch.profiler over one 1-spp frame of
+   every cell.
 3. Images. Each cell, and `conductor` and `dielectric` (so every lobe runs
    on the card), at 256x256, 2 spp, through the kernels and again through
    the plain versions; and Cornell and hall_small (20,606 triangles,
@@ -159,9 +166,10 @@ def plain_kernels():
     saved = (dk.closest_kernel, dk.any_kernel, wk.candidates_kernel,
              wk.closest_kernel, wk.any_kernel, pk.packet_closest_kernel,
              pk.packet_any_kernel)
-    dk.closest_kernel = lambda tris, boxes, *rays: dk.closest_plain(tris,
-                                                                    *rays)
-    dk.any_kernel = lambda tris, boxes, *rays: dk.any_plain(tris, *rays)
+    dk.closest_kernel = (lambda tris, boxes, n_live, *rays:
+                         dk.closest_plain(tris, *rays))
+    dk.any_kernel = (lambda tris, boxes, n_live, *rays:
+                     dk.any_plain(tris, *rays))
     wk.candidates_kernel = wk.candidates_plain
     wk.closest_kernel = (lambda tris, boxes, cand, tnear, count, *rays:
                          wk.closest_plain(tris, cand, count, *rays))
@@ -325,51 +333,83 @@ def subsample(r, dev):
 # Dense kernels
 # ---------------------------------------------------------------------------
 
-def dense_phase(name, scene, waves, card, stats):
-    import torch
+def dense_bound(card, kind, tris, boxes, n_live, rays):
+    """(bound ms, bound_by, tests) of a dense sweep of `rays`: the tests
+    these inputs need (`dense_kernels.needed_work`: live rays, real
+    triangles, occlusion up to the first blocker) x MT_OPS, or the bytes
+    (rays in, answers out, the real triangles and the boxes)."""
     from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
-    closest, shadow = waves
-    tris, boxes = dk.dense_arrays(scene)
-    launch = {"dense_closest": dk.closest_kernel, "dense_any": dk.any_kernel}
-    plain = {"dense_closest": dk.closest_plain, "dense_any": dk.any_plain}
-    per_wave = {"dense_closest": closest, "dense_any": [closest[0]] + shadow}
-    primary = closest[0]
-    r = primary[0].shape[0]
-    sub = (subsample(r, primary[0].device)
+    tests = int(dk.needed_work(kind, tris, boxes, n_live, *rays)[0].sum())
+    r = rays[0].shape[0]
+    n_bytes = r * (32 + (8 if kind == "closest" else 4)) + n_live * 36 \
+        + boxes.numel() * 4
+    return (*card.bound(tests * MT_OPS, n_bytes), tests)
+
+
+def dense_phase(name, scene, closest, shadow, card, stats,
+                closest_labels=None):
+    """The dense kernels on a frame's closest and shadow wavefronts:
+    checks against the plain versions (occlusion also at the primary
+    wavefront), times at every wavefront, and each kernel's numbers at the
+    wavefront the frame first runs it on: closest at the first closest
+    wavefront, occlusion at the bounce-0 shadow wavefront. The kernels'
+    test counts must equal the needed-work count model."""
+    from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
+    tris, boxes, n_live = dk.dense_arrays(scene)
+    r = closest[0][0].shape[0]
+    sub = (subsample(r, closest[0][0].device)
            if r * tris.shape[1] > (1 << 32) else slice(None))
-    for kname, waves_k in per_wave.items():
-        errs, plain_ms = [], None
-        labels = (["primary"] + [f"bounce-{b}" for b in range(1, len(closest))]
-                  if kname == "dense_closest" else
-                  ["primary"] + [f"bounce-{b} shadow"
-                                 for b in range(len(shadow))])
-        for label, rays in zip(labels, waves_k):
-            if label != "primary":
+    labels = closest_labels or (["primary"] + [f"bounce-{b}" for b in
+                                               range(1, len(closest))])
+    closest = list(zip(labels, closest))
+    shadow = [(f"bounce-{b} shadow", w) for b, w in enumerate(shadow)]
+    kinds = {"dense_closest": ("closest", dk.closest_kernel, dk.closest_plain,
+                               closest, closest),
+             "dense_any": ("any", dk.any_kernel, dk.any_plain, shadow,
+                           [("primary", closest[0][1])] + shadow)}
+    for kname, (kind, launch, plain, timed, checked) in kinds.items():
+        if not timed:
+            continue
+        errs = []
+        for i, (label, rays) in enumerate(checked):
+            if i or kind == "any":
                 rays = [x[sub].contiguous() for x in rays]
-            k = launch[kname](tris, boxes, *rays)
-            ms_p, p = cuda_time_once(lambda: plain[kname](tris, *rays))
-            if label == "primary":
-                plain_ms = ms_p  # one call, at the primary wavefront
+            k = launch(tris, boxes, n_live, *rays)
+            p = plain(tris, *rays)
             what = f"{name} {kname} {label}"
-            errs.append(compare_closest(k, p, what) if kname ==
-                        "dense_closest" else compare_any(k, p, what))
-        bounce_waves = closest if kname == "dense_closest" else shadow
-        bounce_ms = [cuda_time_ms(lambda w=w: launch[kname](tris, boxes, *w),
-                                  10) for w in bounce_waves]
-        ms = cuda_time_ms(lambda: launch[kname](tris, boxes, *primary), 20)
-        launch[kname](tris, boxes, *primary)
-        tests = int(launch[kname].tests.sum())
-        n_bytes = r * (32 + (8 if kname == "dense_closest" else 4)) \
-            + tris.numel() * 4 + boxes.numel() * 4
-        bound_ms, bound_by = card.bound(tests * MT_OPS, n_bytes)
-        log(f"  {name} {kname}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
-            f"bound {bound_ms:.3f} ms ({bound_by}; {tests:.4g} triangle "
-            f"tests) at the {r}-ray primary wavefront; per bounce of a "
-            f"frame [{', '.join(f'{t:.3f}' for t in bounce_ms)}] ms")
+            errs.append(compare_closest(k, p, what) if kind == "closest"
+                        else compare_any(k, p, what))
+        plain_ms, _ = cuda_time_once(lambda: plain(tris, *timed[0][1]))
+        rows = []
+        for b, (label, w) in enumerate(timed):
+            ms = cuda_time_ms(lambda w=w: launch(tris, boxes, n_live, *w),
+                              20 if b == 0 else 10)
+            launch(tris, boxes, n_live, *w)
+            got = int(launch.tests.sum())
+            bound_ms, bound_by, need = dense_bound(card, kind, tris, boxes,
+                                                   n_live, w)
+            if got != need:
+                raise AssertionError(f"{name} {kname} {label}: the kernel "
+                                     f"ran {got} tests, the inputs need "
+                                     f"{need}")
+            live = int((w[3] > w[2]).sum())
+            rows.append({"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "tests": need, "live_rays": live})
+            log(f"  {name} {kname} {label}: kernel {ms:.3f} ms, bound "
+                f"{bound_ms:.3f} ms ({bound_by}; {need:.4g} needed tests, "
+                f"{need / max(live, 1):.1f} a live ray, {live} of "
+                f"{w[0].shape[0]} rays live), reach {bound_ms / ms:.1%}")
+        first = rows[0]
+        log(f"  {name} {kname}: kernel {first['ms']:.3f} ms, plain "
+            f"{plain_ms:.1f} ms, bound {first['bound_ms']:.3f} ms at the "
+            f"{timed[0][0]} wavefront ({n_live} live triangles of "
+            f"{tris.shape[1]})")
         stats[(name, kname)] = {
-            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-            "bounce_ms": bounce_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "tests": tests}
+            "max_abs_err": max(errs), "ms": first["ms"],
+            "plain_ms": plain_ms, "bounce_ms": [x["ms"] for x in rows],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "tests": first["tests"],
+            "bounce_bound_ms": [x["bound_ms"] for x in rows]}
 
 
 # ---------------------------------------------------------------------------
@@ -497,8 +537,9 @@ def walk_phase(name, scene, waves, card, stats, dense_table=False,
     per = {"closest": [walk_times(scene, w, "closest", block)
                        for w in closest],
            "any": [walk_times(scene, w, "any", block) for w in shadow]}
+    # each kernel's row: the wavefront the frame first runs it on
     prim = {"closest": walk_times(scene, primary, "closest", block, 20),
-            "any": walk_times(scene, primary, "any", block, 20)}
+            "any": walk_times(scene, shadow[0], "any", block, 20)}
     for kind, rows in per.items():
         for b, t in enumerate(rows):
             log(f"  {name} walk {kind} bounce-{b}: perm {t['perm']:.3f} + "
@@ -507,9 +548,11 @@ def walk_phase(name, scene, waves, card, stats, dense_table=False,
                 f"({t['mean_candidates']:.1f} candidates, "
                 f"{t['mean_swept']:.1f} swept a block)")
 
-    # plain versions at the primary wavefront: one call each
+    # plain versions at those wavefronts: one call each
     srays, boxes, entry, (cand, tnear, count) = walk_prepare(scene, primary,
                                                              block)
+    s_srays, _, _, (s_cand, _, s_count) = walk_prepare(scene, shadow[0],
+                                                       block)
     plain_ms = {
         "walk_candidates": cuda_time_ms(
             lambda: wk.candidates_plain(boxes, *srays, block), 1),
@@ -517,22 +560,30 @@ def walk_phase(name, scene, waves, card, stats, dense_table=False,
             lambda: wk.closest_plain(scene.walk_tris, cand, count, *srays,
                                      block), 1),
         "walk_any": cuda_time_ms(
-            lambda: wk.any_plain(scene.walk_tris, cand, count, *srays,
+            lambda: wk.any_plain(scene.walk_tris, s_cand, s_count, *s_srays,
                                  block), 1)}
     n_chunks, chunk = scene.walk_tris.shape[0], scene.walk_chunk
     maxc_pad = cand.shape[1]
     nb = cand.shape[0]
     tri_bytes = scene.walk_tris.numel() * 4 + boxes.numel() * 4
     cand_ops = r * n_chunks * CAND_OPS
+
+    def any_bound(t):
+        return card.bound(t["tests"] * MT_OPS,
+                          r * 36 + nb * maxc_pad * 4 + nb * 4 + tri_bytes)
+
     bounds = {
         "walk_candidates": card.bound(
             cand_ops, r * 32 + nb * maxc_pad * 4 + boxes.numel() * 4),
         "walk_closest": card.bound(
             prim["closest"]["tests"] * MT_OPS,
             r * 40 + nb * maxc_pad * 8 + nb * 4 + tri_bytes),
-        "walk_any": card.bound(
-            prim["any"]["tests"] * MT_OPS,
-            r * 36 + nb * maxc_pad * 4 + nb * 4 + tri_bytes)}
+        "walk_any": any_bound(prim["any"])}
+    for b, t in enumerate(per["any"]):
+        bound_ms, bound_by = any_bound(t)
+        log(f"  {name} walk_any bounce-{b} shadow: sweep {t['sweep']:.3f} ms,"
+            f" {t['tests']:.4g} tests, bound {bound_ms:.3f} ms ({bound_by}), "
+            f"reach {bound_ms / t['sweep']:.1%}")
     ms = {"walk_candidates": prim["closest"]["candidates"],
           "walk_closest": prim["closest"]["sweep"],
           "walk_any": prim["any"]["sweep"]}
@@ -543,7 +594,9 @@ def walk_phase(name, scene, waves, card, stats, dense_table=False,
         bound_ms, bound_by = bounds[kname]
         log(f"  {name} {kname}: kernel {ms[kname]:.3f} ms, plain "
             f"{plain_ms[kname]:.1f} ms, bound {bound_ms:.3f} ms ({bound_by})"
-            f" at the {r}-ray primary wavefront (block {block})")
+            f" at the {r}-ray "
+            f"{'bounce-0 shadow' if kname == 'walk_any' else 'primary'} "
+            f"wavefront (block {block})")
         stats[(name, kname)] = {
             "max_abs_err": max(errs[kname]), "ms": ms[kname],
             "plain_ms": plain_ms[kname], "bounce_ms": bounce_ms[kname],
@@ -552,14 +605,15 @@ def walk_phase(name, scene, waves, card, stats, dense_table=False,
                               for k, v in per.items()}}
 
     if dense_table:
-        tris, dboxes = dk.dense_arrays(scene)
+        tris, dboxes, n_live = dk.dense_arrays(scene)
         log(f"  {name} dense vs walk per wavefront (ms; walk = perm + "
             f"candidates + sort + sweep, block {block}):")
         rows = []
         for kind, waves_k in (("closest", closest), ("any", shadow)):
             fn = dk.closest_kernel if kind == "closest" else dk.any_kernel
             for b, w in enumerate(waves_k):
-                dense_ms = cuda_time_ms(lambda: fn(tris, dboxes, *w), 10)
+                dense_ms = cuda_time_ms(lambda: fn(tris, dboxes, n_live, *w),
+                                        10)
                 walk = per[kind][b]["total"]
                 rows.append({"kind": kind, "bounce": b, "dense_ms": dense_ms,
                              "walk_ms": walk})
@@ -1096,7 +1150,7 @@ def main():
         closest, shadow, chains = frame_waves(scene, camera, bounces, dev)
         waves = (closest, shadow)
         if name in DENSE_SCENES:
-            dense_phase(name, scene, waves, card, stats)
+            dense_phase(name, scene, closest, shadow, card, stats)
         if name in WALK_SCENES:
             walk_phase(name, scene, waves, card, stats,
                        dense_table=name == "diffuse")
@@ -1106,13 +1160,18 @@ def main():
             walk_phase(name, main_scene, waves, card, stats,
                        primary_sub=SUBSAMPLE)
             packet_phase(name, main_scene, waves, card, stats)
+            # every chain query is a closest hit on the cutout sub-scene;
+            # the radiance chains' first wavefront is the row's
             dense_phase(name, scene.cutout_sub,
-                        (chains["closest"], chains["any"]), card, stats)
+                        chains["closest"] + chains["any"], [], card, stats,
+                        [f"{kind} chain bounce-{b}"
+                         for kind in ("radiance", "shadow")
+                         for b in range(bounces)])
     log("path phase")
     for name, spp, bounces in CELLS:
         scene, camera, _, _ = scenes[name]
         path_phase(name, scene, camera, spp, bounces, dev, stats, card)
-    for name in WALK_SCENES + ("hall",):
+    for name in ("scene3_cornell",) + WALK_SCENES + ("hall",):
         scene, camera, _, bounces = scenes[name]
         profile_frame(name, scene, camera, bounces, dev)
     log("images")

@@ -16,35 +16,55 @@
 //     bounded by min(best t, tmax). Padded rays carry tmax = -1; empty
 //     chunks carry the point box at 3.4e38, which no slab test passes.
 //
-// Design. One thread per ray, 128 rays per block. Triangles come as nine
-// [T_pad] planes (T_pad a multiple of 128) and chunk boxes as six [C]
-// planes. The block walks the chunks in ascending id order. Each ray
-// slab-tests the chunk's box; if no ray of the block passes
-// (__syncthreads_or) the chunk is skipped, otherwise its 128 triangles
-// (4.6 KB) are staged once in shared memory as three float4 per triangle,
-// and every warp with at least one passing ray (__any_sync) runs the 128
-// tests. The running (t, id), or the blocked flag, stays in registers.
-// As in the TPU kernel the cull is per group (block, then warp), so a ray
-// is tested against a chunk that any ray of its warp may hit; the cull is
-// conservative up to rounding at the box faces, like the TPU kernel's.
-//
-// What bounds it on the H100: FP32 issue, not memory. A ray reads 44 bytes
-// and writes 8; a chunk is 4.6 KB from L2 per block, while one pass over a
-// staged chunk is 128 x ~40 separately rounded FP32 operations per ray, fed
-// by 3 broadcast 16-byte shared loads per triangle. The design spends that
-// budget only where the cull lets a warp through: whole chunks are skipped
-// per block, whole warps per chunk, and the occlusion sweep stops once
-// every ray of the block is blocked. Each kernel writes, per block, the
-// chunks it staged and swept and the ray-triangle tests its threads ran,
-// from which the bound is computed.
+// The dense route serves scenes of fewer than 8 chunks of 128 triangles
+// (Cornell: 34 triangles in one chunk; hall's cutout sub-scene: 40), so
+// most slots of a chunk are padding; on shadow wavefronts half the rays
+// are dead (tmax = -1), and on hall's cutout chains two thirds of the live
+// rays miss the foliage's box. What bounds the kernels is FP32 issue (a
+// test is ~54 separately rounded operations fed by three broadcast shared
+// loads), so the design spends issue slots only on tests some input needs:
+//   1. Only real triangles are swept: the launcher passes n_live (the last
+//      valid triangle + 1; every slot past it is padding, v0 = 1e10 and
+//      zero edges, which no ray can hit) and a chunk's loop ends there.
+//   2. Lanes that cannot hit test nothing. A CTA owns a pool of kPool rays
+//      and compacts, per tile of chunks, the rays that are live (tmax >
+//      tmin), not yet blocked (occlusion) and pass the slab test of the
+//      tile's union box, so warps sweep full 32-ray groups of such rays. A
+//      lane then tests a chunk only while its own slab test passes (the
+//      box of chunk c lies in the union box, so the filter never drops a
+//      test), the occlusion lanes each up to their first blocker, and a
+//      warp skips a chunk none of its lanes needs (__any_sync). No barrier
+//      sits between chunks: warps sweep on their own.
+//   3. The triangles are staged in shared memory once per pool of 1,024
+//      rays (PR 5's kernel staged each chunk once per 128 rays), in tiles
+//      of up to 8 chunks (1,024 triangles, 36 KB) taken in id order; each
+//      pool ray's (t, id) or blocked flag and its reciprocal direction (so
+//      a swept ray divides no more) wait in shared memory. A scene of one
+//      tile (every scene the dense route serves) is staged once; a larger
+//      one (method "pallas" on any scene) runs tile by tile through the
+//      same code.
+// Measured on the H100 (PERF.md section 6): against persistent CTAs that
+// sweep 32-ray groups as they come, the compaction costs fully live
+// primaries about a tenth and wins on the shadow wavefronts and on hall's
+// cutout chains; compacting per warp instead of per CTA lost everywhere.
+// The kernels count, per 128-ray block, the chunks some ray of the block
+// tested and the ray-triangle tests its rays ran; those equal the tests
+// the inputs need (`dense_kernels.needed_work`), from which the bound is
+// computed.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kChunk = 128;  // triangles per chunk == culling cluster
-constexpr int kBlock = 128;  // rays per block, one thread per ray
-static_assert(kChunk == kBlock, "staging assumes one triangle per thread");
+constexpr int kChunk = 128;      // triangles per chunk == culling cluster
+constexpr int kBlockRays = 128;  // rays per block of the counts
+constexpr int kWarps = 8;        // warps per CTA
+constexpr int kThreads = kWarps * 32;
+constexpr int kPool = 1024;      // rays per CTA
+constexpr int kPoolBlocks = kPool / kBlockRays;
+constexpr int kTileChunks = 8;   // chunks staged at once
+constexpr int kTileTris = kTileChunks * kChunk;
+static_assert(kPool % kThreads == 0 && kBlockRays % 32 == 0, "pool shape");
 constexpr float kBig = 3.4e38f;
 constexpr float kEpsDet = 1e-12f;
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -59,11 +79,12 @@ __device__ __forceinline__ float safe_inv(float d) {
 }
 
 // Rays past the end are padding: no origin offset, tmax = -1, no hits.
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
-                                        const float* __restrict__ d,
-                                        const float* __restrict__ tmin,
-                                        const float* __restrict__ tmax,
-                                        int n, int i) {
+// The reciprocals are left to the caller.
+__device__ __forceinline__ Ray load_planes(const float* __restrict__ o,
+                                           const float* __restrict__ d,
+                                           const float* __restrict__ tmin,
+                                           const float* __restrict__ tmax,
+                                           int n, int i) {
   Ray r;
   if (i < n) {
     r.ox = o[3 * i]; r.oy = o[3 * i + 1]; r.oz = o[3 * i + 2];
@@ -76,22 +97,71 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
     r.tmin = 0.0f;
     r.tmax = -1.0f;
   }
+  return r;
+}
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
+                                        const float* __restrict__ d,
+                                        const float* __restrict__ tmin,
+                                        const float* __restrict__ tmax,
+                                        int n, int i) {
+  Ray r = load_planes(o, d, tmin, tmax, n, i);
   r.ix = safe_inv(r.dx);
   r.iy = safe_inv(r.dy);
   r.iz = safe_inv(r.dz);
   return r;
 }
 
-// _cluster_test for one ray: can it hit chunk c's box before `limit`?
-__device__ __forceinline__ bool slab(const Ray& r,
-                                     const float* __restrict__ boxes,
-                                     int n_chunks, int c, float limit) {
-  const float tx0 = (boxes[c] - r.ox) * r.ix;
-  const float ty0 = (boxes[n_chunks + c] - r.oy) * r.iy;
-  const float tz0 = (boxes[2 * n_chunks + c] - r.oz) * r.iz;
-  const float tx1 = (boxes[3 * n_chunks + c] - r.ox) * r.ix;
-  const float ty1 = (boxes[4 * n_chunks + c] - r.oy) * r.iy;
-  const float tz1 = (boxes[5 * n_chunks + c] - r.oz) * r.iz;
+// The staged tile: triangle k as (v0x v0y v0z e1x | e1y e1z e2x e2y) in
+// two float4 and e2z alone; chunk j's box as six floats.
+struct Tile {
+  float4* a;
+  float4* b;
+  float* c;
+  float* box;  // [6][kTileChunks]
+};
+
+__device__ __forceinline__ Tile tile_of(float4* smem, int t_alloc) {
+  Tile s;
+  s.a = smem;
+  s.b = smem + t_alloc;
+  s.c = reinterpret_cast<float*>(smem + 2 * t_alloc);
+  s.box = s.c + t_alloc;
+  return s;
+}
+
+// Stage triangles [k0, k1) and the boxes of chunks [c0, c1). The caller
+// synchronises before (the previous tile is done) and after.
+__device__ __forceinline__ void stage_tile(const Tile& s,
+                                           const float* __restrict__ tris,
+                                           const float* __restrict__ boxes,
+                                           int t_pad, int n_chunks, int k0,
+                                           int k1, int c0, int c1) {
+  for (int k = threadIdx.x; k < k1 - k0; k += blockDim.x) {
+    const float* p = tris + k0 + k;
+    s.a[k] = make_float4(p[0], p[t_pad], p[2 * t_pad], p[3 * t_pad]);
+    s.b[k] = make_float4(p[4 * t_pad], p[5 * t_pad], p[6 * t_pad],
+                         p[7 * t_pad]);
+    s.c[k] = p[8 * t_pad];
+  }
+  for (int x = threadIdx.x; x < 6 * (c1 - c0); x += blockDim.x) {
+    const int axis = x / (c1 - c0), j = x % (c1 - c0);
+    s.box[axis * kTileChunks + j] = boxes[axis * n_chunks + c0 + j];
+  }
+}
+
+// _cluster_test for one ray: can it hit the box (min b[0..2], max
+// b[3..5], each at stride `stride`) before `limit`? Every operation is
+// monotone in the box's faces, so a box inside another never passes where
+// the outer one fails.
+__device__ __forceinline__ bool slab(const Ray& r, const float* b,
+                                     int stride, float limit) {
+  const float tx0 = (b[0] - r.ox) * r.ix;
+  const float ty0 = (b[stride] - r.oy) * r.iy;
+  const float tz0 = (b[2 * stride] - r.oz) * r.iz;
+  const float tx1 = (b[3 * stride] - r.ox) * r.ix;
+  const float ty1 = (b[4 * stride] - r.oy) * r.iy;
+  const float tz1 = (b[5 * stride] - r.oz) * r.iz;
   const float t_near = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
                              fminf(tz0, tz1));
   const float t_far = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
@@ -99,29 +169,33 @@ __device__ __forceinline__ bool slab(const Ray& r,
   return t_near <= t_far && t_far >= r.tmin && t_near <= limit;
 }
 
-// Stage chunk c into shared memory: triangle k as three float4
-// (v0x v0y v0z e1x | e1y e1z e2x e2y | e2z - - -).
-__device__ __forceinline__ void stage_chunk(float4 (*s_tri)[3],
-                                            const float* __restrict__ tris,
-                                            int t_pad, int c) {
-  const int k = threadIdx.x;
-  const float* p = tris + c * kChunk + k;
-  s_tri[k][0] = make_float4(p[0], p[t_pad], p[2 * t_pad], p[3 * t_pad]);
-  s_tri[k][1] = make_float4(p[4 * t_pad], p[5 * t_pad], p[6 * t_pad],
-                            p[7 * t_pad]);
-  s_tri[k][2] = make_float4(p[8 * t_pad], 0.0f, 0.0f, 0.0f);
+// The union of staged boxes [0, n) that hold a triangle (an empty chunk
+// carries the point box at kBig) into u[6]; false if there is none.
+__device__ __forceinline__ bool union_box(const float* box, int n,
+                                          float* u) {
+  bool any = false;
+  for (int j = 0; j < n; ++j) {
+    if (box[j] >= 1e38f) continue;
+    for (int a = 0; a < 3; ++a) {
+      const float lo = box[a * kTileChunks + j];
+      const float hi = box[(a + 3) * kTileChunks + j];
+      u[a] = any ? fminf(u[a], lo) : lo;
+      u[a + 3] = any ? fmaxf(u[a + 3], hi) : hi;
+    }
+    any = true;
+  }
+  return any;
 }
 
-// _mt_scalar_tri for one (ray, triangle) pair, same operation order.
-// Returns hit (tmin < t < limit inside the triangle) and t.
-__device__ __forceinline__ bool mt(const Ray& r, const float4 (*s_tri)[3],
-                                   int k, float limit, float* t_out) {
-  const float4 a = s_tri[k][0];
-  const float4 b = s_tri[k][1];
-  const float4 c = s_tri[k][2];
+// _mt_scalar_tri for one (ray, staged triangle) pair, same operation
+// order. Returns hit (tmin < t < limit inside the triangle) and t.
+__device__ __forceinline__ bool mt(const Ray& r, const Tile& s, int k,
+                                   float limit, float* t_out) {
+  const float4 a = s.a[k];
+  const float4 b = s.b[k];
   const float v0x = a.x, v0y = a.y, v0z = a.z;
   const float e1x = a.w, e1y = b.x, e1z = b.y;
-  const float e2x = b.z, e2y = b.w, e2z = c.x;
+  const float e2x = b.z, e2y = b.w, e2z = s.c[k];
 
   const float pvx = r.dy * e2z - r.dz * e2y;
   const float pvy = r.dz * e2x - r.dx * e2z;
@@ -143,100 +217,203 @@ __device__ __forceinline__ bool mt(const Ray& r, const float4 (*s_tri)[3],
          t < limit;
 }
 
-// Thread 0 writes the sum of v over the block to *out. Every thread calls
-// it; s_sum is one int of shared memory.
-__device__ __forceinline__ void block_sum_to(int v, int* s_sum, int* out) {
-  v = static_cast<int>(__reduce_add_sync(kFullMask, static_cast<unsigned>(v)));
-  if (threadIdx.x == 0) *s_sum = 0;
+// What a CTA keeps about its pool of rays across tiles.
+struct Pool {
+  int slot[kPool];       // the compacted pool slots of this tile
+  float bt[kPool];       // closest: best t
+  int bi[kPool];         // closest: best id; occlusion: blocked
+  float inv[3][kPool];   // the rays' safe reciprocal directions
+  int tests[kPoolBlocks];
+  int swept[kPoolBlocks];
+  int chunk_on[kPoolBlocks][kTileChunks];  // some ray of the block tested
+  int wanted[kWarps];    // compacted slots a warp contributes
+};
+
+// Both sweeps over the CTA's pool of rays [blockIdx.x * kPool, + kPool):
+// the live chunks in tiles, in id order. Per tile, the pool rays that can
+// hit the tile (live, open, inside the union box) are compacted and swept
+// 32 at a time. Closest keeps (t, id) in out_t / out_i, occlusion the
+// blocked flag in out_i.
+template <bool kClosest>
+__device__ __forceinline__ void sweep(
+    const float* __restrict__ o, const float* __restrict__ d,
+    const float* __restrict__ tmin, const float* __restrict__ tmax, int n,
+    const float* __restrict__ tris, const float* __restrict__ boxes,
+    int n_chunks, int n_live, float* __restrict__ out_t,
+    int* __restrict__ out_i, int* __restrict__ swept,
+    int* __restrict__ tests, int t_alloc) {
+  extern __shared__ float4 smem[];
+  __shared__ Pool p;
+  const Tile s = tile_of(smem, t_alloc);
+  const int t_pad = n_chunks * kChunk;
+  const int live_chunks = (n_live + kChunk - 1) / kChunk;
+  const int ray0 = blockIdx.x * kPool;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int q = threadIdx.x; q < kPool; q += kThreads) {
+    p.bt[q] = kBig;
+    p.bi[q] = kClosest ? -1 : 0;
+  }
+  for (int b = threadIdx.x; b < kPoolBlocks; b += kThreads) {
+    p.tests[b] = p.swept[b] = 0;
+    for (int j = 0; j < kTileChunks; ++j) p.chunk_on[b][j] = 0;
+  }
+  for (int c0 = 0; c0 < live_chunks; c0 += kTileChunks) {
+    const int c1 = min(c0 + kTileChunks, live_chunks);
+    const int k0 = c0 * kChunk, k1 = min(c1 * kChunk, n_live);
+    __syncthreads();  // the last tile is done with s and p.slot
+    stage_tile(s, tris, boxes, t_pad, n_chunks, k0, k1, c0, c1);
+    __syncthreads();
+    float u[6];
+    const bool any_box = union_box(s.box, c1 - c0, u);
+    // warp w compacts the kPool / kWarps pool slots from w * kPool /
+    // kWarps, so the compacted slots stay in ray order
+    unsigned want[kPool / kThreads];
+    int n_want = 0;
+    for (int m = 0; m < kPool / kThreads; ++m) {
+      const int q = warp * (kPool / kWarps) + m * 32 + lane;
+      const Ray r = load_ray(o, d, tmin, tmax, n, ray0 + q);
+      p.inv[0][q] = r.ix;
+      p.inv[1][q] = r.iy;
+      p.inv[2][q] = r.iz;
+      const bool open = r.tmax > r.tmin && (kClosest || p.bi[q] == 0);
+      const float limit = kClosest ? fminf(p.bt[q], r.tmax) : r.tmax;
+      want[m] = __ballot_sync(kFullMask,
+                              open && any_box && slab(r, u, 1, limit));
+      n_want += __popc(want[m]);
+    }
+    if (lane == 0) p.wanted[warp] = n_want;
+    __syncthreads();
+    int offset = 0, total = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      offset += w < warp ? p.wanted[w] : 0;
+      total += p.wanted[w];
+    }
+    for (int m = 0; m < kPool / kThreads; ++m) {
+      if (want[m] >> lane & 1)
+        p.slot[offset + __popc(want[m] & ((1u << lane) - 1))] =
+            warp * (kPool / kWarps) + m * 32 + lane;
+      offset += __popc(want[m]);
+    }
+    __syncthreads();
+    for (int g = warp * 32; g < total; g += kThreads) {
+      const int q = g + lane < total ? p.slot[g + lane] : -1;
+      // an idle lane (q < 0) loads the dead padding ray past the end
+      Ray r = load_planes(o, d, tmin, tmax, n, q < 0 ? n : ray0 + q);
+      r.ix = q < 0 ? 1.0f : p.inv[0][q];
+      r.iy = q < 0 ? 1.0f : p.inv[1][q];
+      r.iz = q < 0 ? 1.0f : p.inv[2][q];
+      const bool live = r.tmax > r.tmin;
+      float bt = q < 0 ? kBig : p.bt[q];
+      int bi = q < 0 ? 0 : p.bi[q];
+      bool blocked = !kClosest && bi != 0;
+      int n_tests = 0;
+      for (int c = c0; c < c1; ++c) {
+        const bool open = live && (kClosest || !blocked);
+        if (!kClosest && !__any_sync(kFullMask, open)) break;  // all settled
+        const bool can = open && slab(r, s.box + (c - c0), kTileChunks,
+                                      kClosest ? fminf(bt, r.tmax) : r.tmax);
+        if (!__any_sync(kFullMask, can)) continue;
+        if (!can) continue;
+        p.chunk_on[q / kBlockRays][c - c0] = 1;
+        const int kb = (c - c0) * kChunk;
+        const int ke = min(kb + kChunk, k1 - k0);
+        if (kClosest) {
+#pragma unroll 4
+          for (int k = kb; k < ke; ++k) {
+            float t;
+            if (mt(r, s, k, fminf(bt, r.tmax), &t) && t < bt) {
+              bt = t;
+              bi = k0 + k;
+            }
+          }
+          n_tests += ke - kb;
+        } else {
+#pragma unroll 4
+          for (int k = kb; k < ke && !blocked; ++k) {
+            float t;
+            blocked = mt(r, s, k, r.tmax, &t);
+            ++n_tests;
+          }
+        }
+      }
+      if (q >= 0) {
+        p.bt[q] = bt;
+        p.bi[q] = kClosest ? bi : (blocked ? 1 : 0);
+        if (n_tests) atomicAdd(&p.tests[q / kBlockRays], n_tests);
+      }
+    }
+    __syncthreads();
+    for (int b = threadIdx.x; b < kPoolBlocks; b += kThreads) {
+      for (int j = 0; j < kTileChunks; ++j) {
+        p.swept[b] += p.chunk_on[b][j];
+        p.chunk_on[b][j] = 0;
+      }
+    }
+  }
   __syncthreads();
-  if ((threadIdx.x & 31) == 0) atomicAdd(s_sum, v);
-  __syncthreads();
-  if (threadIdx.x == 0) *out = *s_sum;
+  for (int q = threadIdx.x; q < kPool; q += kThreads) {
+    const int i = ray0 + q;
+    if (i >= n) break;
+    if (kClosest) out_t[i] = p.bt[q];
+    out_i[i] = p.bi[q];
+  }
+  const int n_blocks = (n + kBlockRays - 1) / kBlockRays;
+  for (int b = threadIdx.x; b < kPoolBlocks; b += kThreads) {
+    const int gb = blockIdx.x * kPoolBlocks + b;
+    if (gb < n_blocks) {
+      swept[gb] = p.swept[b];
+      tests[gb] = p.tests[b];
+    }
+  }
 }
 
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kThreads)
 dense_closest_kernel(const float* __restrict__ o, const float* __restrict__ d,
                      const float* __restrict__ tmin,
                      const float* __restrict__ tmax, int n,
                      const float* __restrict__ tris,
                      const float* __restrict__ boxes, int n_chunks,
-                     float* __restrict__ out_t, int* __restrict__ out_id,
-                     int* __restrict__ swept, int* __restrict__ tests) {
-  __shared__ float4 s_tri[kChunk][3];
-  __shared__ int s_sum;
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  const Ray r = load_ray(o, d, tmin, tmax, n, i);
-  const bool live = r.tmax > r.tmin;  // else no t can satisfy tmin<t<tmax
-  const int t_pad = n_chunks * kChunk;
-  float bt = kBig;
-  int bi = -1;
-  int n_swept = 0;
-  int n_tests = 0;
-  for (int c = 0; c < n_chunks; ++c) {
-    const bool can = live && slab(r, boxes, n_chunks, c, fminf(bt, r.tmax));
-    if (!__syncthreads_or(can)) continue;
-    ++n_swept;
-    stage_chunk(s_tri, tris, t_pad, c);
-    __syncthreads();
-    if (__any_sync(kFullMask, can)) {
-      for (int k = 0; k < kChunk; ++k) {
-        float t;
-        if (mt(r, s_tri, k, fminf(bt, r.tmax), &t) && t < bt) {
-          bt = t;
-          bi = c * kChunk + k;
-        }
-      }
-      n_tests += kChunk;
-    }
-    __syncthreads();  // the next chunk overwrites s_tri
-  }
-  if (i < n) {
-    out_t[i] = bt;
-    out_id[i] = bi;
-  }
-  if (threadIdx.x == 0) swept[blockIdx.x] = n_swept;
-  block_sum_to(n_tests, &s_sum, tests + blockIdx.x);
+                     int n_live, float* __restrict__ out_t,
+                     int* __restrict__ out_id, int* __restrict__ swept,
+                     int* __restrict__ tests, int t_alloc) {
+  sweep<true>(o, d, tmin, tmax, n, tris, boxes, n_chunks, n_live, out_t,
+              out_id, swept, tests, t_alloc);
 }
 
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kThreads)
 dense_any_kernel(const float* __restrict__ o, const float* __restrict__ d,
                  const float* __restrict__ tmin,
                  const float* __restrict__ tmax, int n,
                  const float* __restrict__ tris,
-                 const float* __restrict__ boxes, int n_chunks,
+                 const float* __restrict__ boxes, int n_chunks, int n_live,
                  int* __restrict__ out_blocked, int* __restrict__ swept,
-                 int* __restrict__ tests) {
-  __shared__ float4 s_tri[kChunk][3];
-  __shared__ int s_sum;
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  const Ray r = load_ray(o, d, tmin, tmax, n, i);
-  const bool live = r.tmax > r.tmin;
-  const int t_pad = n_chunks * kChunk;
-  bool blocked = false;
-  int n_swept = 0;
-  int n_tests = 0;
-  for (int c = 0; c < n_chunks; ++c) {
-    const bool open = live && !blocked;
-    const bool can = open && slab(r, boxes, n_chunks, c, r.tmax);
-    if (!__syncthreads_or(can)) {
-      if (!__syncthreads_or(open)) break;  // every ray settled
-      continue;
-    }
-    ++n_swept;
-    stage_chunk(s_tri, tris, t_pad, c);
-    __syncthreads();
-    if (__any_sync(kFullMask, can)) {
-      for (int k = 0; k < kChunk && !blocked; ++k) {
-        float t;
-        blocked = mt(r, s_tri, k, r.tmax, &t);
-        ++n_tests;
-      }
-    }
-    __syncthreads();
-  }
-  if (i < n) out_blocked[i] = blocked ? 1 : 0;
-  if (threadIdx.x == 0) swept[blockIdx.x] = n_swept;
-  block_sum_to(n_tests, &s_sum, tests + blockIdx.x);
+                 int* __restrict__ tests, int t_alloc) {
+  sweep<false>(o, d, tmin, tmax, n, tris, boxes, n_chunks, n_live, nullptr,
+               out_blocked, swept, tests, t_alloc);
+}
+
+// Triangles one tile stages, and the dynamic shared memory that takes.
+int staged_tris(int n_live) { return n_live < kTileTris ? n_live : kTileTris; }
+
+size_t smem_bytes(int t_alloc) {
+  return static_cast<size_t>(t_alloc) * (2 * sizeof(float4) + sizeof(float))
+         + 6 * kTileChunks * sizeof(float);
+}
+
+// Launch one CTA per pool of rays, the tile's size last. A full tile and
+// the static Pool pass 48 KB, so the kernel's dynamic shared memory limit
+// is raised once.
+template <auto kKernel, typename... Args>
+int launch(int n_rays, int n_live, void* stream, Args... args) {
+  if (n_rays == 0) return 0;
+  static const cudaError_t raised = cudaFuncSetAttribute(
+      kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_bytes(kTileTris)));
+  if (raised != cudaSuccess) return static_cast<int>(raised);
+  const int t_alloc = staged_tris(n_live);
+  kKernel<<<(n_rays + kPool - 1) / kPool, kThreads, smem_bytes(t_alloc),
+            static_cast<cudaStream_t>(stream)>>>(args..., t_alloc);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -244,30 +421,27 @@ dense_any_kernel(const float* __restrict__ o, const float* __restrict__ d,
 extern "C" {
 
 // Both entry points launch on `stream`, do not synchronise, and return
-// cudaGetLastError() (0 on success). o, d: [n, 3]; tmin, tmax: [n];
-// tris: [9, n_chunks * 128]; boxes: [6, n_chunks]; swept, tests:
-// [ceil(n / 128)] chunks swept and ray-triangle tests run per block; all
-// float32 / int32, contiguous.
+// cudaGetLastError() (0 on success). o, d: [n, 3]; tmin, tmax: [n]; tris:
+// [9, n_chunks * 128]; boxes: [6, n_chunks]; n_live: the triangles to
+// sweep (every one from n_live on is padding); swept, tests: [ceil(n /
+// 128)] chunks some ray of the block tested and ray-triangle tests its
+// rays ran, per 128-ray block; all float32 / int32, contiguous.
 int dense_closest(const float* o, const float* d, const float* tmin,
                   const float* tmax, int n_rays, const float* tris,
-                  const float* boxes, int n_chunks, float* out_t,
+                  const float* boxes, int n_chunks, int n_live, float* out_t,
                   int* out_id, int* swept, int* tests, void* stream) {
-  const int grid = (n_rays + kBlock - 1) / kBlock;
-  dense_closest_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      o, d, tmin, tmax, n_rays, tris, boxes, n_chunks, out_t, out_id, swept,
-      tests);
-  return static_cast<int>(cudaGetLastError());
+  return launch<dense_closest_kernel>(n_rays, n_live, stream, o, d, tmin,
+                                     tmax, n_rays, tris, boxes, n_chunks,
+                                     n_live, out_t, out_id, swept, tests);
 }
 
 int dense_any(const float* o, const float* d, const float* tmin,
               const float* tmax, int n_rays, const float* tris,
-              const float* boxes, int n_chunks, int* out_blocked,
+              const float* boxes, int n_chunks, int n_live, int* out_blocked,
               int* swept, int* tests, void* stream) {
-  const int grid = (n_rays + kBlock - 1) / kBlock;
-  dense_any_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      o, d, tmin, tmax, n_rays, tris, boxes, n_chunks, out_blocked, swept,
-      tests);
-  return static_cast<int>(cudaGetLastError());
+  return launch<dense_any_kernel>(n_rays, n_live, stream, o, d, tmin, tmax,
+                                 n_rays, tris, boxes, n_chunks, n_live,
+                                 out_blocked, swept, tests);
 }
 
 }  // extern "C"

@@ -17,8 +17,10 @@ kernel or raises, and never falls back.
 
 `launches` on each kernel wrapper counts its launches, so a run can show
 that the render went through the kernels; `swept` and `tests` hold the
-last launch's chunks swept and ray-triangle tests run per 128-ray block
-(int32), from which the kernel's bound is computed.
+last launch's chunks some ray of a 128-ray block tested and the
+ray-triangle tests its rays ran, per block (int32). `needed_work` counts
+the same with plain PyTorch, from what the inputs need: the kernels must
+report exactly that, and the bound is computed from it.
 """
 from __future__ import annotations
 
@@ -37,14 +39,18 @@ PLAIN_PAIRS = 1 << 24  # (ray, triangle) pairs per step of the plain sweep
 
 
 def dense_arrays(scene):
-    """(tris [9, T_pad], boxes [6, C]) of a scene, built once and cached on
-    it (`_prep` in the reference, minus the ray planes).
+    """(tris [9, T_pad], boxes [6, C], n_live) of a scene, built once and
+    cached on it (`_prep` in the reference, minus the ray planes).
 
     tris: v0 xyz, e1 xyz, e2 xyz planes, padded to a multiple of TRI_CHUNK
     with far-away degenerate triangles (v0 = 1e10, zero edges).
     boxes: per-chunk AABBs over the valid triangles (min xyz, max xyz);
     a chunk with no valid triangle gets the point box at BIG, which no slab
-    test passes (an inverted box would pass every one)."""
+    test passes (an inverted box would pass every one).
+    n_live: the last valid triangle's index + 1, the triangles the kernels
+    sweep. Every slot from n_live on is padding (the flatten pads the
+    scene's own arrays the same way): its zero edges give det = 0, so no
+    ray hits it, and skipping it changes no answer."""
     cached = scene.cache.get("dense")
     if cached is not None:
         return cached
@@ -74,8 +80,13 @@ def dense_arrays(scene):
     c_min = torch.where(empty, BIG, c_min)
     c_max = torch.where(empty, BIG, c_max)
     boxes = torch.cat([c_min.T, c_max.T]).contiguous()
-    scene.cache["dense"] = (tris, boxes)
-    return tris, boxes
+    live = torch.nonzero(scene.tri_valid)
+    n_live = int(live.max()) + 1 if live.numel() else 0
+    if (tris[3:, n_live:] != 0).any():
+        raise ValueError("a triangle past the last valid one has edges: "
+                         "the dense kernels would skip a possible hit")
+    scene.cache["dense"] = (tris, boxes, n_live)
+    return tris, boxes, n_live
 
 
 def _rays(o, d, tmin, tmax):
@@ -165,6 +176,60 @@ def any_plain(tris, o, d, tmin, tmax):
     return blocked
 
 
+def _slab_plain(o, inv, tmin, limit, boxes, c):
+    """The kernels' slab test of rays against chunk c's box: [r] bool."""
+    t0 = (boxes[:3, c] - o) * inv
+    t1 = (boxes[3:, c] - o) * inv
+    lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+    t_near = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]), lo[:, 2])
+    t_far = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]), hi[:, 2])
+    return (t_near <= t_far) & (t_far >= tmin) & (t_near <= limit)
+
+
+def needed_work(kind, tris, boxes, n_live, o, d, tmin, tmax):
+    """The work a dense sweep of these inputs needs, per 128-ray block
+    (int64): (ray-triangle tests, chunks some ray of the block tests), by a
+    plain count model. Chunks in id order; a live ray (tmax > tmin) whose
+    slab test passes a chunk (bounded by min(best t, tmax) for "closest",
+    tmax for "any") tests that chunk's real triangles (those before
+    n_live), and an occlusion ray only up to its first blocker and no
+    chunk after it. Padding triangles and dead rays cost nothing. The CUDA
+    kernels report exactly these counts."""
+    r = o.shape[0]
+    tiny = torch.where(d >= 0, 1e-20, -1e-20)
+    inv = 1.0 / torch.where(d.abs() < 1e-20, tiny, d)
+    bt = torch.full((r,), BIG, device=o.device)
+    open_ = tmax > tmin
+    n_blocks = -(-r // BLOCK_RAYS)
+    tests = torch.zeros(n_blocks * BLOCK_RAYS, dtype=torch.long,
+                        device=o.device)
+    chunks = torch.zeros(n_blocks, dtype=torch.long, device=o.device)
+    for c in range(-(-n_live // TRI_CHUNK)):
+        k0, k1 = c * TRI_CHUNK, min((c + 1) * TRI_CHUNK, n_live)
+        limit = torch.minimum(bt, tmax) if kind == "closest" else tmax
+        can = open_ & _slab_plain(o, inv, tmin, limit, boxes, c)
+        per_block = torch.zeros(n_blocks * BLOCK_RAYS, dtype=torch.bool,
+                                device=o.device)
+        per_block[:r] = can
+        chunks += per_block.view(n_blocks, BLOCK_RAYS).any(dim=1)
+        idx = torch.nonzero(can).flatten()
+        step = max(1, PLAIN_PAIRS // (k1 - k0))
+        for s0 in range(0, idx.numel(), step):
+            ix = idx[s0:s0 + step]
+            t, hit = _mt_plain(o[ix], d[ix], tmin[ix], limit[ix],
+                               tris[:, k0:k1])
+            if kind == "closest":
+                tests[ix] += k1 - k0
+                bt[ix] = torch.minimum(bt[ix],
+                                       torch.where(hit, t, BIG).amin(dim=1))
+            else:
+                blocker = hit.any(dim=1)
+                tests[ix] += torch.where(blocker, hit.int().argmax(dim=1) + 1,
+                                         k1 - k0)
+                open_[ix] &= ~blocker
+    return tests.view(n_blocks, BLOCK_RAYS).sum(dim=1), chunks
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels (csrc/dense_intersect.cu)
 # ---------------------------------------------------------------------------
@@ -172,9 +237,9 @@ def any_plain(tris, o, d, tmin, tmax):
 _P = ctypes.c_void_p
 _ARGTYPES = {
     "dense_closest": [_P, _P, _P, _P, ctypes.c_int, _P, _P, ctypes.c_int,
-                      _P, _P, _P, _P, _P],
+                      ctypes.c_int, _P, _P, _P, _P, _P],
     "dense_any": [_P, _P, _P, _P, ctypes.c_int, _P, _P, ctypes.c_int,
-                  _P, _P, _P, _P],
+                  ctypes.c_int, _P, _P, _P, _P],
 }
 
 
@@ -185,10 +250,11 @@ def _fn(name):
     return fn
 
 
-def _check_cuda(tris, boxes, o, d, tmin, tmax):
+def _check_cuda(tris, boxes, n_live, o, d, tmin, tmax):
     """Raise unless the inputs are what the kernels take: float32,
     contiguous, on o's CUDA device; rays [R, 3], bounds [R], tris
-    [9, 128 C], boxes [6, C]. Returns the input pointers in kernel order."""
+    [9, 128 C], boxes [6, C], 0 <= n_live <= 128 C. Returns the input
+    pointers in kernel order."""
     r, n_chunks = o.shape[0], boxes.shape[-1]
     want = ((o, (r, 3)), (d, (r, 3)), (tmin, (r,)), (tmax, (r,)),
             (tris, (9, n_chunks * TRI_CHUNK)), (boxes, (6, n_chunks)))
@@ -201,13 +267,16 @@ def _check_cuda(tris, boxes, o, d, tmin, tmax):
                 f"expected contiguous float32 {shape} on one CUDA device")
     if r >= 2**31:
         raise ValueError("too many rays for one launch")
+    if not 0 <= n_live <= n_chunks * TRI_CHUNK:
+        raise ValueError(f"n_live {n_live} outside "
+                         f"[0, {n_chunks * TRI_CHUNK}]")
     return [x.data_ptr() for x, _ in want]
 
 
-def closest_kernel(tris, boxes, o, d, tmin, tmax):
+def closest_kernel(tris, boxes, n_live, o, d, tmin, tmax):
     """Launch the closest-hit kernel: (t [R], id [R] int32) on o's device."""
     o_p, d_p, tmin_p, tmax_p, tris_p, boxes_p = _check_cuda(
-        tris, boxes, o, d, tmin, tmax)
+        tris, boxes, n_live, o, d, tmin, tmax)
     r = o.shape[0]
     out_t = torch.empty(r, dtype=torch.float32, device=o.device)
     out_id = torch.empty(r, dtype=torch.int32, device=o.device)
@@ -215,8 +284,9 @@ def closest_kernel(tris, boxes, o, d, tmin, tmax):
     with torch.cuda.device(o.device):
         err = _fn("dense_closest")(
             o_p, d_p, tmin_p, tmax_p, r, tris_p, boxes_p, boxes.shape[1],
-            out_t.data_ptr(), out_id.data_ptr(), counts[0].data_ptr(),
-            counts[1].data_ptr(), torch.cuda.current_stream().cuda_stream)
+            n_live, out_t.data_ptr(), out_id.data_ptr(),
+            counts[0].data_ptr(), counts[1].data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"dense_closest launch failed: CUDA error {err}")
     closest_kernel.launches += 1
@@ -224,18 +294,18 @@ def closest_kernel(tris, boxes, o, d, tmin, tmax):
     return out_t, out_id
 
 
-def any_kernel(tris, boxes, o, d, tmin, tmax):
+def any_kernel(tris, boxes, n_live, o, d, tmin, tmax):
     """Launch the occlusion kernel: blocked [R] bool on o's device."""
     o_p, d_p, tmin_p, tmax_p, tris_p, boxes_p = _check_cuda(
-        tris, boxes, o, d, tmin, tmax)
+        tris, boxes, n_live, o, d, tmin, tmax)
     r = o.shape[0]
     out = torch.empty(r, dtype=torch.int32, device=o.device)
     counts = _count_buffer(o)
     with torch.cuda.device(o.device):
         err = _fn("dense_any")(
             o_p, d_p, tmin_p, tmax_p, r, tris_p, boxes_p, boxes.shape[1],
-            out.data_ptr(), counts[0].data_ptr(), counts[1].data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            n_live, out.data_ptr(), counts[0].data_ptr(),
+            counts[1].data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"dense_any launch failed: CUDA error {err}")
     any_kernel.launches += 1
@@ -244,8 +314,8 @@ def any_kernel(tris, boxes, o, d, tmin, tmax):
 
 
 def _count_buffer(o):
-    """The kernels' int32 outputs per 128-ray block: row 0 the chunks swept,
-    row 1 the ray-triangle tests run."""
+    """The kernels' int32 outputs per 128-ray block: row 0 the chunks
+    swept, row 1 the ray-triangle tests run."""
     return torch.empty((2, -(-o.shape[0] // BLOCK_RAYS)), dtype=torch.int32,
                        device=o.device)
 
@@ -268,10 +338,10 @@ def _require_cpu(o):
 
 def intersect_closest_raw(scene, o, d, tmin=0.0, tmax=100.0):
     """(t, tri_id) per ray; t = BIG and id = -1 on a miss."""
-    tris, boxes = dense_arrays(scene)
+    tris, boxes, n_live = dense_arrays(scene)
     rays = _rays(o, d, tmin, tmax)
     if rays[0].is_cuda:
-        return closest_kernel(tris, boxes, *rays)
+        return closest_kernel(tris, boxes, n_live, *rays)
     _require_cpu(rays[0])
     return closest_plain(tris, *rays)
 
@@ -293,9 +363,9 @@ def intersect_closest(scene, o, d, tmin=0.0, tmax=100.0):
 
 def intersect_any(scene, o, d, tmin=0.0, tmax=100.0):
     """True where some triangle blocks the segment (tmin, tmax)."""
-    tris, boxes = dense_arrays(scene)
+    tris, boxes, n_live = dense_arrays(scene)
     rays = _rays(o, d, tmin, tmax)
     if rays[0].is_cuda:
-        return any_kernel(tris, boxes, *rays)
+        return any_kernel(tris, boxes, n_live, *rays)
     _require_cpu(rays[0])
     return any_plain(tris, *rays)

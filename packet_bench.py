@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time versions of the packet kernels (csrc/packet_intersect.cu) against
-each other on the `hall` wavefronts where the packet engine runs, in one
-process on one NVIDIA GPU.
+"""Time versions of the packet kernels (csrc/packet_intersect.cu) or, with
+--dense, of the dense kernels (csrc/dense_intersect.cu) against each other
+on the wavefronts where the engine runs, in one process on one NVIDIA GPU.
 
-    python3 packet_bench.py [NAME=PATH.cu ...]
+    python3 packet_bench.py [--dense] [NAME=PATH.cu ...]
 
 The repository's own source is always measured, as "current". Each other
 PATH is a version of csrc/packet_intersect.cu with the same two C entry
@@ -24,6 +24,18 @@ tests it reports, and its bound (chip_smoke's: tests x 54 + slab tests x
 28 FP32 operations at the card's max SM clock, or the bytes at 3.35 TB/s)
 with the reach (bound / ms). The last line of output is one JSON object
 with every number.
+
+With --dense, each PATH is a version of csrc/dense_intersect.cu with the
+same two C entry points (`dense_closest`, `dense_any`, n_live included),
+run on the four wavefronts of one 1080p Cornell frame (closest at the
+primary and bounce 1, occlusion at both shadow wavefronts) and on the
+first query of each of hall's cutout chains (closest hits on the
+40-triangle cutout sub-scene: the radiance and the shadow chains of
+bounces 0 and 1). Each version must return the current source's t, ids
+or blocked flags bit for bit; it is timed as above and read against one
+bound for all versions, chip_smoke's needed-work bound (the tests
+`dense_kernels.needed_work` counts for these inputs x 54). Printed per
+wavefront and version: ms, the tests the version reports, and the reach.
 """
 import ctypes
 import hashlib
@@ -99,26 +111,114 @@ def launcher(lib):
     return launch
 
 
-def main(argv):
+def dense_launcher(lib):
+    """launch(kind, tris, boxes, n_live, o, d, tmin, tmax) -> (output,
+    counts [2, n_blocks]) for one compiled version of the dense kernels."""
     import torch
-    if not torch.cuda.is_available():
-        print("packet_bench: no CUDA device", file=sys.stderr)
-        return 1
-    from optixpathtracer_tpu_torch import _build
+    from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
+    fns = {}
+    for kind, name in (("closest", "dense_closest"), ("any", "dense_any")):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = dk._ARGTYPES[name], ctypes.c_int
+        fns[kind] = fn
+
+    def launch(kind, tris, boxes, n_live, o, d, tmin, tmax):
+        r = o.shape[0]
+        outs = ((torch.empty(r, device=o.device),
+                 torch.empty(r, dtype=torch.int32, device=o.device))
+                if kind == "closest" else
+                (torch.empty(r, dtype=torch.int32, device=o.device),))
+        counts = torch.zeros_like(dk._count_buffer(o))
+        err = fns[kind](
+            *[x.data_ptr() for x in (o, d, tmin, tmax)], r, tris.data_ptr(),
+            boxes.data_ptr(), boxes.shape[1], n_live,
+            *[x.data_ptr() for x in outs], *[c.data_ptr() for c in counts],
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{kind} launch failed: CUDA error {err}")
+        return outs, counts
+
+    return launch
+
+
+def time_in_turns(launch, label, *args):
+    """Check every version's outputs against the current source's, bit for
+    bit, then time them in turns: ({version: counts summed}, {version: [ms
+    of each turn]})."""
+    import torch
+    want, _ = launch["current"](*args)
+    counts = {}
+    for name, fn in launch.items():
+        got, c = fn(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(
+                    f"{name} {label}: {int((g != w).sum())} outputs differ "
+                    f"from the current source's")
+        counts[name] = [int(x.sum()) for x in c]
+    ms = {name: [] for name in launch}
+    order = list(launch)
+    for _ in range(ROUNDS):
+        for name in order + order[::-1]:
+            ms[name].append(cs.cuda_time_ms(
+                lambda fn=launch[name]: fn(*args), REPS))
+    return counts, ms
+
+
+def dense_rows(card, launch, dev):
+    """The dense versions on Cornell's four wavefronts and hall's cutout
+    chains."""
+    from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
     from optixpathtracer_tpu_torch.scene import flatten_model
     from optixpathtracer_tpu_torch.scene.procedural import PRESETS
+    waves = []
+    model, camera, lights = PRESETS["scene3_cornell"]()
+    cornell = flatten_model(model, lights, device=dev)
+    closest, shadow, _ = cs.frame_waves(cornell, camera, 2, dev)
+    waves += [("cornell", cornell, "closest", f"bounce-{b}", w)
+              for b, w in enumerate(closest)]
+    waves += [("cornell", cornell, "any", f"bounce-{b} shadow", w)
+              for b, w in enumerate(shadow)]
+    model, camera, lights = PRESETS["hall"]()
+    hall = flatten_model(model, lights, device=dev)
+    _, _, chains = cs.frame_waves(hall, camera, 2, dev)
+    for chain in ("closest", "any"):
+        waves += [("hall cutout", hall.cutout_sub, "closest",
+                   f"{'radiance' if chain == 'closest' else 'shadow'} chain "
+                   f"bounce-{b}", w) for b, w in enumerate(chains[chain])]
+    results = []
+    for scene_name, scene, kind, label, rays in waves:
+        tris, boxes, n_live = dk.dense_arrays(scene)
+        args = (kind, tris, boxes, n_live, *rays)
+        counts, ms = time_in_turns(launch, f"{scene_name} {kind} {label}",
+                                   *args)
+        bound_ms, bound_by, need = cs.dense_bound(card, kind, tris, boxes,
+                                                  n_live, rays)
+        live = int((rays[3] > rays[2]).sum())
+        cs.log(f"{scene_name} dense_{kind} {label} ({rays[0].shape[0]} rays,"
+               f" {live} live; {need:.4g} needed tests, bound "
+               f"{bound_ms:.4f} ms, {bound_by}):")
+        for name in launch:
+            mean = sum(ms[name]) / len(ms[name])
+            tests = counts[name][1]
+            row = {"scene": scene_name, "kind": kind, "wavefront": label,
+                   "version": name, "ms": mean, "ms_all": ms[name],
+                   "tests": tests, "needed_tests": need,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "reach": bound_ms / mean}
+            results.append(row)
+            cs.log(f"  {name:>12}: {mean:.4f} ms "
+                   f"[{', '.join(f'{x:.4f}' for x in ms[name])}], "
+                   f"{tests:.4g} tests reported ({tests / need:.2f}x "
+                   f"needed), reach {row['reach']:.1%}")
+    return results
 
-    variants = {"current": os.path.join(_build.CSRC, "packet_intersect.cu")}
-    variants.update(arg.split("=", 1) for arg in argv)
-    card = cs.Card()
-    cs.log(f"card: {card.name_power}, max SM clock {card.max_sm_mhz:.0f} MHz"
-           f"; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    t0 = time.perf_counter()
-    libs = build(variants)
-    cs.log(f"{len(libs)} versions built in {time.perf_counter() - t0:.1f} s")
-    launch = {name: launcher(lib) for name, lib in libs.items()}
 
-    dev = torch.device("cuda")
+def packet_rows(card, launch, dev):
+    """The packet versions on hall's four packet wavefronts."""
+    from optixpathtracer_tpu_torch.scene import flatten_model
+    from optixpathtracer_tpu_torch.scene.procedural import PRESETS
     model, camera, lights = PRESETS["hall"]()
     hall = flatten_model(model, lights, device=dev)
     scene = hall.opaque_scene
@@ -130,23 +230,7 @@ def main(argv):
         srays, _, _, (cand, tnear, count) = cs.walk_prepare(scene, rays, 256)
         args = (scene.walk_tris, scene.walk_sub_box, cand, tnear, count,
                 *srays)
-        want, _ = launch["current"](kind, *args)
-        counts = {}
-        for name, fn in launch.items():
-            got, c = fn(kind, *args)
-            torch.cuda.synchronize()
-            for g, w in zip(got, want):
-                if not torch.equal(g, w):
-                    raise AssertionError(
-                        f"{name} {kind} bounce-{b}: {int((g != w).sum())} "
-                        f"outputs differ from the current source's")
-            counts[name] = [int(x.sum()) for x in c]
-        ms = {name: [] for name in launch}
-        order = list(launch)
-        for _ in range(ROUNDS):
-            for name in order + order[::-1]:
-                ms[name].append(cs.cuda_time_ms(
-                    lambda fn=launch[name]: fn(kind, *args), REPS))
+        counts, ms = time_in_turns(launch, f"{kind} bounce-{b}", kind, *args)
         r = srays[0].shape[0]
         packets = -(-r // 8)
         cs.log(f"hall packet_{kind} bounce-{b} ({r} rays, "
@@ -167,7 +251,31 @@ def main(argv):
                    f"{row['swept_per_packet']:.2f} swept a packet, "
                    f"{tests:.4g} tests, {slabs:.4g} slab tests, bound "
                    f"{bound_ms:.3f} ms ({bound_by}), reach {row['reach']:.1%}")
-    print(json.dumps({"card": card.name_power, "rows": results}))
+    return results
+
+
+def main(argv):
+    import torch
+    if not torch.cuda.is_available():
+        print("packet_bench: no CUDA device", file=sys.stderr)
+        return 1
+    from optixpathtracer_tpu_torch import _build
+
+    dense = "--dense" in argv
+    source = "dense_intersect.cu" if dense else "packet_intersect.cu"
+    variants = {"current": os.path.join(_build.CSRC, source)}
+    variants.update(arg.split("=", 1) for arg in argv if arg != "--dense")
+    card = cs.Card()
+    cs.log(f"card: {card.name_power}, max SM clock {card.max_sm_mhz:.0f} MHz"
+           f"; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    libs = build(variants)
+    cs.log(f"{len(libs)} versions built in {time.perf_counter() - t0:.1f} s")
+    make = dense_launcher if dense else launcher
+    launch = {name: make(lib) for name, lib in libs.items()}
+    rows = (dense_rows if dense else packet_rows)(card, launch,
+                                                 torch.device("cuda"))
+    print(json.dumps({"card": card.name_power, "rows": rows}))
     return 0
 
 

@@ -43,9 +43,10 @@ def plain_kernels():
     saved = (dk.closest_kernel, dk.any_kernel, wk.candidates_kernel,
              wk.closest_kernel, wk.any_kernel, pk.packet_closest_kernel,
              pk.packet_any_kernel)
-    dk.closest_kernel = lambda tris, boxes, *rays: dk.closest_plain(tris,
-                                                                    *rays)
-    dk.any_kernel = lambda tris, boxes, *rays: dk.any_plain(tris, *rays)
+    dk.closest_kernel = (lambda tris, boxes, n_live, *rays:
+                         dk.closest_plain(tris, *rays))
+    dk.any_kernel = (lambda tris, boxes, n_live, *rays:
+                     dk.any_plain(tris, *rays))
     wk.candidates_kernel = wk.candidates_plain
     wk.closest_kernel = (lambda tris, boxes, cand, tnear, count, *rays:
                          wk.closest_plain(tris, cand, count, *rays))
@@ -77,38 +78,179 @@ def _sphere_floor_rays(device):
     return scene, o.reshape(-1, 3).contiguous(), d.reshape(-1, 3)
 
 
+def _check_dense_kernels(tris, boxes, n_live, rays):
+    """Both dense kernels against the plain versions on one query: t, ids
+    and blocked flags identical; each 128-ray block's tests and chunks
+    swept exactly the needed-work counts of `dk.needed_work` (so never
+    more than its live rays x n_live tests, nor the live chunks). Returns
+    (ids, blocked)."""
+    tmin, tmax = rays[2], rays[3]
+    kt, ki = dk.closest_kernel(tris, boxes, n_live, *rays)
+    pt, pi = dk.closest_plain(tris, *rays)
+    kb = dk.any_kernel(tris, boxes, n_live, *rays)
+    pb = dk.any_plain(tris, *rays)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi)
+    assert torch.equal(kt, pt)
+    assert torch.equal(kb, pb)
+    assert not kb[tmax <= tmin].any()  # dead rays are never blocked
+    n_blocks = -(-tmax.shape[0] // dk.BLOCK_RAYS)
+    live = torch.zeros(n_blocks * dk.BLOCK_RAYS, dtype=torch.long,
+                       device=tmax.device)
+    live[:tmax.shape[0]] = tmax > tmin
+    live = live.view(n_blocks, -1).sum(dim=1)
+    live_chunks = -(-n_live // dk.TRI_CHUNK)
+    for kind, k in (("closest", dk.closest_kernel), ("any", dk.any_kernel)):
+        assert k.swept.shape == k.tests.shape == (n_blocks,)
+        need, chunks = dk.needed_work(kind, tris, boxes, n_live, *rays)
+        assert torch.equal(k.tests.long(), need), kind
+        assert torch.equal(k.swept.long(), chunks), kind
+        assert (need <= live * n_live).all()
+        assert (chunks <= live_chunks).all() and k.tests.sum() > 0
+    return ki, kb
+
+
 def test_kernels_match_plain_on_sphere_scene(cuda):
     scene, o, d = _sphere_floor_rays(cuda)
-    tris, boxes = dk.dense_arrays(scene)
+    tris, boxes, n_live = dk.dense_arrays(scene)
     r = o.shape[0]
     tmin = torch.zeros(r, device=cuda)
-    for tmax_val in (100.0, 1.0):
+    for tmax_val in (100.0, 1.0, 3.0):
         tmax = torch.full((r,), tmax_val, device=cuda)
-        kt, ki = dk.closest_kernel(tris, boxes, o, d, tmin, tmax)
-        pt, pi = dk.closest_plain(tris, o, d, tmin, tmax)
-        torch.cuda.synchronize()
+        if tmax_val == 3.0:
+            tmax[::17] = -1.0
+        ki, kb = _check_dense_kernels(tris, boxes, n_live, (o, d, tmin, tmax))
         if tmax_val == 100.0:  # nothing lies within 1.0 of this camera
             assert (ki >= 0).any() and (ki < 0).any()
-        assert torch.equal(ki, pi)
-        assert torch.equal(kt, pt)
-        swept, tests = dk.closest_kernel.swept, dk.closest_kernel.tests
-        assert (swept <= boxes.shape[1]).all()
-        assert (tests <= swept * dk.BLOCK_RAYS * dk.TRI_CHUNK).all()
-    tmax = torch.full((r,), 3.0, device=cuda)
-    tmax[::17] = -1.0
-    kb = dk.any_kernel(tris, boxes, o, d, tmin, tmax)
-    pb = dk.any_plain(tris, o, d, tmin, tmax)
+        if tmax_val == 3.0:
+            assert kb.any() and not kb.all()
+
+
+def _scattered(o, d, hit_t, seed):
+    """Rays from just off the hit points of (o, d) in random directions,
+    tmax 5 from a hit, dead (tmax = -1) from a miss, as a bounce's
+    wavefront; every third ray of those also dead, every fifth given
+    tmax = tmin (live in no test), so dead lanes sit in live warps."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    dirs = torch.randn(o.shape, generator=gen).to(o.device)
+    dirs = (dirs / dirs.norm(dim=1, keepdim=True)).contiguous()
+    hit = hit_t < 1e30
+    origins = (o + torch.where(hit, hit_t, 0.0)[:, None] * d
+               + 1e-3 * dirs).contiguous()
+    tmax = torch.where(hit, 5.0, -1.0)
+    tmax[::3] = -1.0
+    tmin = torch.zeros_like(tmax)
+    tmin[1::5] = 0.5
+    tmax[1::5] = 0.5
+    return origins, dirs, tmin, tmax
+
+
+def _sphere_scene(device, rings, segments):
+    mat = Material(mat_type="diffuse")
+    floor = quad((-5.0, 0.0, -5.0), (0.0, 0.0, 10.0), (10.0, 0.0, 0.0), mat)
+    return flatten_model(Model(meshes=[uv_sphere(0.5, (0.0, 0.5, 0.0), rings,
+                                                 segments, mat), floor]),
+                         [PointLight(np.array([2.0, 3.0, 1.0]), np.ones(3))],
+                         device=device)
+
+
+@pytest.mark.parametrize("rings,segments,n_chunks", [(5, 8, 1), (26, 16, 7)])
+def test_dense_kernels_dead_lanes_and_ragged_end(cuda, rings, segments,
+                                                 n_chunks):
+    """A 1-chunk and a 7-chunk scene (a sphere on a floor; the last chunk
+    part padding): primaries cut 13 rays short of a block (the last block
+    is part padding), with dead lanes in live warps, and a scattered
+    wavefront from their hit points."""
+    scene = _sphere_scene(cuda, rings, segments)
+    tris, boxes, n_live = dk.dense_arrays(scene)
+    assert boxes.shape[1] == n_chunks and n_live % dk.TRI_CHUNK != 0
+    cam = Camera(position=np.array([3.0, 1.0, 0.0]),
+                 rotation=np.array([10.0, 180.0, 0.0]))
+    o, d = generate_rays(*cam.raygen_params(160, 120, cuda), 160, 120)
+    o = o.reshape(-1, 3)[:-13].contiguous()
+    d = d.reshape(-1, 3)[:-13].contiguous()
+    r = o.shape[0]
+    tmax = torch.full((r,), 100.0, device=cuda)
+    tmax[::7] = -1.0
+    rays = (o, d, torch.zeros(r, device=cuda), tmax)
+    ki, _ = _check_dense_kernels(tris, boxes, n_live, rays)
+    assert (ki >= 0).any() and (ki < 0).any()
+    kt = dk.closest_kernel(tris, boxes, n_live, o, d, rays[2],
+                           torch.full((r,), 100.0, device=cuda))[0]
+    _, kb = _check_dense_kernels(tris, boxes, n_live,
+                                 _scattered(o, d, kt, seed=1))
     assert kb.any() and not kb.all()
-    assert torch.equal(kb, pb)
-    assert not kb[::17].any()
+
+
+def test_dense_ties_across_chunks(cuda):
+    """Two coincident triangles in chunks 0 and 2 (ids 100 and 300), with
+    chunk 1 (small triangles behind them) between: both kernels agree with
+    the plain versions, and closest returns the lower id, 100."""
+    import types
+    n = 301
+    v0 = np.zeros((n, 3), np.float32)
+    e1 = np.zeros_like(v0)
+    e2 = np.zeros_like(v0)
+    for k in range(n):  # small triangles behind the pair, off the axis
+        v0[k], e1[k], e2[k] = (3.0, 0.01 * k, 12.0), (0.1, 0, 0), (0, 0.1, 0)
+    for k in (100, 300):
+        v0[k], e1[k], e2[k] = (-4.0, -4.0, 10.0), (8.0, 0, 0), (0, 8.0, 0)
+    scene = types.SimpleNamespace(
+        **{k: torch.tensor(x, device=cuda) for k, x in
+           (("tri_v0", v0), ("tri_e1", e1), ("tri_e2", e2))},
+        tri_valid=torch.ones(n, dtype=torch.bool, device=cuda), cache={})
+    tris, boxes, n_live = dk.dense_arrays(scene)
+    assert (boxes.shape[1], n_live) == (3, 301)
+    rng = np.random.default_rng(5)
+    m = 3 * 128 - 5
+    target = np.concatenate([rng.uniform(-2.0, -0.2, (m, 2)),
+                             np.full((m, 1), 10.0)], axis=1)
+    o = rng.normal(0.0, 0.01, (m, 3))
+    dirs = target - o
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    tmax = np.full(m, 100.0)
+    tmax[::4] = -1.0
+    rays = [torch.tensor(x, dtype=torch.float32, device=cuda).contiguous()
+            for x in (o, dirs, np.zeros(m), tmax)]
+    ki, kb = _check_dense_kernels(tris, boxes, n_live, rays)
+    live = rays[3] > 0
+    assert (ki[live] == 100).all() and kb[live].all()
+
+
+def test_dense_kernels_many_tiles_through_pallas(cuda):
+    """The full `diffuse` scene (149 chunks: 19 tiles of 8) through the
+    dense kernels, directly and through method "pallas", against the
+    plain versions: the (t, id) or blocked flag kept between tiles."""
+    from optixpathtracer_tpu_torch.intersect import api
+    scene, o, d = _walk_scene_rays(cuda, segments=None, size=(96, 64))
+    tris, boxes, n_live = dk.dense_arrays(scene)
+    assert boxes.shape[1] == 149
+    r = o.shape[0]
+    tmax = torch.full((r,), 100.0, device=cuda)
+    tmax[::11] = -1.0
+    rays = (o, d, torch.zeros(r, device=cuda), tmax)
+    ki, _ = _check_dense_kernels(tris, boxes, n_live, rays)
+    assert (ki >= 0).any()
+    kt = dk.closest_kernel(tris, boxes, n_live, *rays)[0]
+    _check_dense_kernels(tris, boxes, n_live, _scattered(o, d, kt, seed=2))
+    before = dk.closest_kernel.launches
+    got = api.intersect_closest(scene, o, d, 0.0, 100.0, method="pallas")
+    assert dk.closest_kernel.launches == before + 1
+    with plain_kernels():
+        want = api.intersect_closest(scene, o, d, 0.0, 100.0,
+                                     method="pallas")
+    assert torch.equal(got.tri_id, want.tri_id)
+    assert torch.equal(got.t, want.t)
 
 
 def test_launch_errors_raise(cuda):
     scene, o, d = _sphere_floor_rays(cuda)
-    tris, boxes = dk.dense_arrays(scene)
+    tris, boxes, n_live = dk.dense_arrays(scene)
     tmin = torch.zeros(o.shape[0], device=cuda)
     with pytest.raises(ValueError):  # mixed devices are refused
-        dk.closest_kernel(tris, boxes, o.cpu(), d, tmin, tmin)
+        dk.closest_kernel(tris, boxes, n_live, o.cpu(), d, tmin, tmin)
+    with pytest.raises(ValueError, match="n_live"):
+        dk.closest_kernel(tris, boxes, tris.shape[1] + 1, o, d, tmin, tmin)
     before = dk.closest_kernel.launches
     dk.intersect_closest_raw(scene, o, d, 0.0, 100.0)
     assert dk.closest_kernel.launches == before + 1
