@@ -176,6 +176,13 @@ def any_plain(tris, o, d, tmin, tmax):
     return blocked
 
 
+def _safe_inv(d):
+    """The kernels' reciprocal directions, |d| clamped to 1e-20 (no 0*inf
+    in the slab tests)."""
+    tiny = torch.where(d >= 0, 1e-20, -1e-20)
+    return 1.0 / torch.where(d.abs() < 1e-20, tiny, d)
+
+
 def _slab_plain(o, inv, tmin, limit, boxes, c):
     """The kernels' slab test of rays against chunk c's box: [r] bool."""
     t0 = (boxes[:3, c] - o) * inv
@@ -196,8 +203,7 @@ def needed_work(kind, tris, boxes, n_live, o, d, tmin, tmax):
     chunk after it. Padding triangles and dead rays cost nothing. The CUDA
     kernels report exactly these counts."""
     r = o.shape[0]
-    tiny = torch.where(d >= 0, 1e-20, -1e-20)
-    inv = 1.0 / torch.where(d.abs() < 1e-20, tiny, d)
+    inv = _safe_inv(d)
     bt = torch.full((r,), BIG, device=o.device)
     open_ = tmax > tmin
     n_blocks = -(-r // BLOCK_RAYS)
@@ -314,8 +320,8 @@ def any_kernel(tris, boxes, n_live, o, d, tmin, tmax):
 
 
 def _count_buffer(o):
-    """The kernels' int32 outputs per 128-ray block: row 0 the chunks
-    swept, row 1 the ray-triangle tests run."""
+    """The kernels' int32 outputs per 128-ray block: row 0 the chunks swept,
+    row 1 the ray-triangle tests run."""
     return torch.empty((2, -(-o.shape[0] // BLOCK_RAYS)), dtype=torch.int32,
                        device=o.device)
 

@@ -33,7 +33,7 @@ import ctypes
 import torch
 
 from .. import _build
-from .dense_kernels import BIG, _mt_plain, _rays
+from .dense_kernels import BIG, _mt_plain, _rays, _safe_inv
 from .types import Hit
 
 LANES = 128          # candidate rows are padded to a multiple of this
@@ -103,11 +103,6 @@ def _check_walkable(scene):
         raise ValueError(
             "scene has no walk arrays (flattened with build_bvh=False); "
             "the walk engine needs build_bvh=True")
-
-
-def _safe_inv(d):
-    tiny = torch.where(d >= 0, 1e-20, -1e-20)
-    return 1.0 / torch.where(d.abs() < 1e-20, tiny, d)
 
 
 def _n_blocks(r, block_rays):
