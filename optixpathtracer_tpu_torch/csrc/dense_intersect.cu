@@ -36,7 +36,7 @@
 //      warp skips a chunk none of its lanes needs (__any_sync). No barrier
 //      sits between chunks: warps sweep on their own.
 //   3. The triangles are staged in shared memory once per pool of 1,024
-//      rays (PR 5's kernel staged each chunk once per 128 rays), in tiles
+//      rays (not each chunk once per 128 rays), in tiles
 //      of up to 8 chunks (1,024 triangles, 36 KB) taken in id order; each
 //      pool ray's (t, id) or blocked flag and its reciprocal direction (so
 //      a swept ray divides no more) wait in shared memory. A scene of one
