@@ -38,17 +38,23 @@ runs the dense closest kernel over the 40-triangle cutout sub-scene).
    wavefront the subchunks swept a packet, the triangle and slab tests,
    the bound and its reach (bound / kernel ms).
    Each kernel's bound is computed from this run's inputs: the
-   ray-triangle tests the sweeps report running (and the packet kernels'
-   ray-subchunk slab tests) times the FP32 operations of one test, over
-   132 SMs x 128 lanes at the card's max SM clock, or the bytes over
-   3.35 TB/s, whichever is larger. For the dense kernels the tests are
-   those the inputs need, from the plain count model
-   `dense_kernels.needed_work` (live rays, real triangles, occlusion up
-   to the first blocker), which the kernels' own counts must equal. Each
-   kernel's row is at the wavefront the frame first runs it on: closest
-   and candidates at the primary wavefront (hall's dense closest at its
-   first cutout chain, packet at bounce 1), occlusion at the bounce-0
-   shadow wavefront, with the other wavefronts listed.
+   ray-triangle tests times the FP32 operations of one test (plus the
+   packet kernels' ray-subchunk slab tests, the candidate kernel's
+   all-pairs slab tests), over 132 SMs x 128 lanes at the card's max SM
+   clock, or the bytes over 3.35 TB/s, whichever is larger. For the dense
+   and walk sweeps the tests are those the inputs need, from the plain
+   count models `dense_kernels.needed_work` and `walk_kernels.needed_work`
+   (live rays whose own slab test passes a chunk, real triangles,
+   occlusion up to the first blocker): the dense kernels' and the walk
+   closest kernel's per-block counts must equal them, the walk occlusion
+   kernel's chunks too and its tests lie within the model's slack; the
+   packet kernels' are the tests they report. Every walk sweep is timed
+   and bounded at every wavefront. Each kernel's row is at the wavefront
+   the frame first runs it on: closest and candidates at the primary
+   wavefront (hall's dense closest at its first cutout chain, packet at
+   bounce 1), occlusion at the bounce-0 shadow wavefront, with the other
+   wavefronts listed. The build's register counts (ptxas -v) of all
+   seven kernels are printed.
 2. Path phase. `render` (method "auto") of each cell at 1920x1080 with
    every launch counter zeroed just before and read just after; each
    cell's kernels must have launched and the image must be finite and
@@ -443,6 +449,28 @@ def walk_block_rays(srays, cand, count, block_rays, n_sub):
             cand[blocks].contiguous(), count[blocks].contiguous(), blocks)
 
 
+def walk_bound(card, kind, scene, boxes, cand, tnear, count, srays,
+               block_rays):
+    """(bound ms, bound_by, tests, chunks, below, above) of a walk sweep
+    of the sorted rays `srays`: the tests these inputs need
+    (`walk_kernels.needed_work`: live rays whose own slab test passes a
+    candidate chunk, its real triangles, occlusion up to the first
+    blocker) x MT_OPS, or the bytes (rays in, answers out, the candidate
+    rows, the chunk triangles and boxes). tests, chunks and the occlusion
+    slack (below, above) are per block."""
+    from optixpathtracer_tpu_torch.intersect import walk_kernels as wk
+    tests, chunks, below, above = wk.needed_work(
+        kind, scene.walk_tris, boxes, cand, tnear, count, *srays, block_rays,
+        slack=True)
+    r = srays[0].shape[0]
+    nb, maxc_pad = cand.shape
+    n_bytes = (r * (40 if kind == "closest" else 36)
+               + nb * maxc_pad * (8 if kind == "closest" else 4) + nb * 4
+               + scene.walk_tris.numel() * 4 + boxes.numel() * 4)
+    return (*card.bound(int(tests.sum()) * MT_OPS, n_bytes), tests, chunks,
+            below, above)
+
+
 def walk_check(name, label, scene, rays, kind, n_sub=None):
     """Each walk kernel of one query against its plain version: entries
     bit-identical over the whole wavefront, sweep results on whole blocks
@@ -479,9 +507,13 @@ def walk_check(name, label, scene, rays, kind, n_sub=None):
     return compare_any(kb[idx], pb, f"{name} walk_any {label}")
 
 
-def walk_times(scene, rays, kind, block_rays, reps=10):
+def walk_times(scene, rays, kind, block_rays, reps=10, card=None):
     """ms of each step of one walk query: coherence sort, candidates,
-    candidate sort, sweep; and the sweep's triangle tests."""
+    candidate sort, sweep. With `card`, also the sweep's bound from the
+    needed work (`walk_bound`), after checking the kernel's per-block
+    counts against it: chunks swept equal, closest tests equal, occlusion
+    tests within the model's slack."""
+    import torch
     from optixpathtracer_tpu_torch.intersect import walk_kernels as wk
     srays, boxes, entry, (cand, tnear, count) = walk_prepare(scene, rays,
                                                              block_rays)
@@ -510,6 +542,24 @@ def walk_times(scene, rays, kind, block_rays, reps=10):
     out["mean_swept"] = float(kernel.swept.float().mean())
     out["total"] = out["perm"] + out["candidates"] + out["sort"] + out["sweep"]
     out["mean_candidates"] = float(count.float().mean())
+    out["live"] = int((srays[3] > srays[2]).sum())
+    if card is not None:
+        got_tests, got_swept = kernel.tests.long(), kernel.swept.long()
+        out["bound_ms"], out["bound_by"], need, chunks, below, above = \
+            walk_bound(card, kind, scene, boxes, cand, tnear, count, srays,
+                       block_rays)
+        if not torch.equal(got_swept, chunks):
+            raise AssertionError(f"walk_{kind}: the kernel swept "
+                                 f"{int(got_swept.sum())} chunks, the inputs "
+                                 f"need {int(chunks.sum())}")
+        # closest: below = above = 0, so the counts must be equal
+        ok = bool(((got_tests >= need - below)
+                   & (got_tests <= need + above)).all())
+        if not ok:
+            raise AssertionError(f"walk_{kind}: the kernel ran "
+                                 f"{out['tests']} tests, the inputs need "
+                                 f"{int(need.sum())}")
+        out["needed_tests"] = int(need.sum())
     return out
 
 
@@ -534,12 +584,13 @@ def walk_phase(name, scene, waves, card, stats, dense_table=False,
                                            w, "any", SUBSAMPLE))
 
     block = wk.BLOCK_RAYS
-    per = {"closest": [walk_times(scene, w, "closest", block)
-                       for w in closest],
-           "any": [walk_times(scene, w, "any", block) for w in shadow]}
-    # each kernel's row: the wavefront the frame first runs it on
-    prim = {"closest": walk_times(scene, primary, "closest", block, 20),
-            "any": walk_times(scene, shadow[0], "any", block, 20)}
+    # every wavefront, each sweep read against the work its rays need; each
+    # kernel's row: the wavefront the frame first runs it on
+    per = {"closest": [walk_times(scene, w, "closest", block,
+                                  20 if b == 0 else 10, card)
+                       for b, w in enumerate(closest)],
+           "any": [walk_times(scene, w, "any", block, 20 if b == 0 else 10,
+                              card) for b, w in enumerate(shadow)]}
     for kind, rows in per.items():
         for b, t in enumerate(rows):
             log(f"  {name} walk {kind} bounce-{b}: perm {t['perm']:.3f} + "
@@ -547,6 +598,13 @@ def walk_phase(name, scene, waves, card, stats, dense_table=False,
                 f"sweep {t['sweep']:.3f} = {t['total']:.3f} ms "
                 f"({t['mean_candidates']:.1f} candidates, "
                 f"{t['mean_swept']:.1f} swept a block)")
+            log(f"  {name} walk_{kind} bounce-{b}"
+                f"{' shadow' if kind == 'any' else ''}: sweep "
+                f"{t['sweep']:.3f} ms, bound {t['bound_ms']:.3f} ms "
+                f"({t['bound_by']}; {t['needed_tests']:.4g} needed tests, "
+                f"{t['tests']:.4g} run, {t['live']} live rays), reach "
+                f"{t['bound_ms'] / t['sweep']:.1%}")
+    prim = {"closest": per["closest"][0], "any": per["any"][0]}
 
     # plain versions at those wavefronts: one call each
     srays, boxes, entry, (cand, tnear, count) = walk_prepare(scene, primary,
@@ -562,34 +620,24 @@ def walk_phase(name, scene, waves, card, stats, dense_table=False,
         "walk_any": cuda_time_ms(
             lambda: wk.any_plain(scene.walk_tris, s_cand, s_count, *s_srays,
                                  block), 1)}
-    n_chunks, chunk = scene.walk_tris.shape[0], scene.walk_chunk
-    maxc_pad = cand.shape[1]
-    nb = cand.shape[0]
-    tri_bytes = scene.walk_tris.numel() * 4 + boxes.numel() * 4
-    cand_ops = r * n_chunks * CAND_OPS
-
-    def any_bound(t):
-        return card.bound(t["tests"] * MT_OPS,
-                          r * 36 + nb * maxc_pad * 4 + nb * 4 + tri_bytes)
-
+    n_chunks = scene.walk_tris.shape[0]
+    nb, maxc_pad = cand.shape
     bounds = {
         "walk_candidates": card.bound(
-            cand_ops, r * 32 + nb * maxc_pad * 4 + boxes.numel() * 4),
-        "walk_closest": card.bound(
-            prim["closest"]["tests"] * MT_OPS,
-            r * 40 + nb * maxc_pad * 8 + nb * 4 + tri_bytes),
-        "walk_any": any_bound(prim["any"])}
-    for b, t in enumerate(per["any"]):
-        bound_ms, bound_by = any_bound(t)
-        log(f"  {name} walk_any bounce-{b} shadow: sweep {t['sweep']:.3f} ms,"
-            f" {t['tests']:.4g} tests, bound {bound_ms:.3f} ms ({bound_by}), "
-            f"reach {bound_ms / t['sweep']:.1%}")
+            r * n_chunks * CAND_OPS,
+            r * 32 + nb * maxc_pad * 4 + boxes.numel() * 4),
+        "walk_closest": (prim["closest"]["bound_ms"],
+                         prim["closest"]["bound_by"]),
+        "walk_any": (prim["any"]["bound_ms"], prim["any"]["bound_by"])}
     ms = {"walk_candidates": prim["closest"]["candidates"],
           "walk_closest": prim["closest"]["sweep"],
           "walk_any": prim["any"]["sweep"]}
     bounce_ms = {"walk_candidates": [t["candidates"] for t in per["closest"]],
                  "walk_closest": [t["sweep"] for t in per["closest"]],
                  "walk_any": [t["sweep"] for t in per["any"]]}
+    bounce_bound = {"walk_candidates": [bounds["walk_candidates"][0]],
+                    "walk_closest": [t["bound_ms"] for t in per["closest"]],
+                    "walk_any": [t["bound_ms"] for t in per["any"]]}
     for kname in ms:
         bound_ms, bound_by = bounds[kname]
         log(f"  {name} {kname}: kernel {ms[kname]:.3f} ms, plain "
@@ -601,6 +649,7 @@ def walk_phase(name, scene, waves, card, stats, dense_table=False,
             "max_abs_err": max(errs[kname]), "ms": ms[kname],
             "plain_ms": plain_ms[kname], "bounce_ms": bounce_ms[kname],
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "bounce_bound_ms": bounce_bound[kname],
             "walk_total_ms": {k: [t["total"] for t in v]
                               for k, v in per.items()}}
 
@@ -733,6 +782,18 @@ def ptxas_usage(report):
     return usage
 
 
+def kernel_registers(reports):
+    """{kernel: (registers, static shared bytes)} of the seven kernels,
+    from the ptxas reports of the build."""
+    usage = {}
+    for report in reports.values():
+        for mangled, v in ptxas_usage(report).items():
+            for kname in KERNEL_SOURCES:
+                if f"{kname}_kernel" in mangled:
+                    usage[kname] = v
+    return usage
+
+
 def packet_phase(name, scene, waves, card, stats):
     """The packet kernels on every wavefront of the frame: checks, times at
     256- and 1024-ray blocks, the walk-vs-packet table, and the kernels'
@@ -777,7 +838,7 @@ def packet_phase(name, scene, waves, card, stats):
         ctas, threads = pk.grid(t0["rays"], pk.BLOCK_RAYS)
         log(f"  {name} {kname}: "
             + (f"{regs[0][0]} registers, {regs[0][1]} bytes static"
-               if regs else "ptxas report not printed (library cached)")
+               if regs else "no ptxas report")
             + f" + {n_bytes} bytes dynamic shared memory a {threads}-thread "
             f"block, {ctas} blocks (union tile {t0['tile']} ranks)")
         for b, t in enumerate(per[(kind, pk.BLOCK_RAYS)]):
@@ -1124,6 +1185,9 @@ def main():
     for line in "".join(reports.values()).splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas: " + line.strip())
+    registers = kernel_registers(reports)
+    log("registers a thread (ptxas -v; static shared bytes): " + ", ".join(
+        f"{k} {v[0]} ({v[1]})" for k, v in registers.items()))
     dev = torch.device("cuda")
 
     scenes = {}
@@ -1192,6 +1256,8 @@ def main():
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                 "bound_by": s["bound_by"], "library_ms": None,
                 "bounce_ms": s["bounce_ms"],
+                "bounce_bound_ms": s.get("bounce_bound_ms"),
+                "registers": registers.get(kname, (None,))[0],
                 "render_mrays_per_s": stats[(name, "render")]["mrays_per_s"],
             })
     assert {k["name"].split(":")[0] for k in kernels} == set(KERNEL_SOURCES)

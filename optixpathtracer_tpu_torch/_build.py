@@ -48,12 +48,18 @@ def library_path(name: str) -> str:
 def build(names=SOURCES) -> dict:
     """Compile every listed source that has no up-to-date library, one
     `nvcc` per source, all started together. Returns {name: ptxas report}
-    for the sources compiled by this call; raises if any compile fails."""
+    for every listed source: this call's compile's, or the one saved beside
+    a library built earlier; raises if any compile fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = {}
+    procs, reports = {}, {}
     for name in names:
         out = library_path(name)
         if os.path.exists(out):
+            try:
+                with open(f"{out}.ptxas") as f:
+                    reports[name] = f.read()
+            except FileNotFoundError:
+                reports[name] = ""
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
@@ -61,13 +67,15 @@ def build(names=SOURCES) -> dict:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
-    reports, failed = {}, []
+    failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         reports[name] = log
         if proc.returncode:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
         else:
+            with open(f"{out}.ptxas", "w") as f:
+                f.write(log)
             os.replace(tmp, out)  # atomic: concurrent builders never clash
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))

@@ -183,13 +183,15 @@ def _safe_inv(d):
     return 1.0 / torch.where(d.abs() < 1e-20, tiny, d)
 
 
-def _slab_plain(o, inv, tmin, limit, boxes, c):
-    """The kernels' slab test of rays against chunk c's box: [r] bool."""
-    t0 = (boxes[:3, c] - o) * inv
-    t1 = (boxes[3:, c] - o) * inv
+def _slab_plain(o, inv, tmin, limit, box):
+    """The kernels' slab test of rays (o, inv [..., 3]) against boxes
+    (min xyz, max xyz in box [..., 6], broadcast against the rays):
+    [...] bool."""
+    t0 = (box[..., :3] - o) * inv
+    t1 = (box[..., 3:] - o) * inv
     lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
-    t_near = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]), lo[:, 2])
-    t_far = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]), hi[:, 2])
+    t_near = torch.maximum(torch.maximum(lo[..., 0], lo[..., 1]), lo[..., 2])
+    t_far = torch.minimum(torch.minimum(hi[..., 0], hi[..., 1]), hi[..., 2])
     return (t_near <= t_far) & (t_far >= tmin) & (t_near <= limit)
 
 
@@ -213,7 +215,7 @@ def needed_work(kind, tris, boxes, n_live, o, d, tmin, tmax):
     for c in range(-(-n_live // TRI_CHUNK)):
         k0, k1 = c * TRI_CHUNK, min((c + 1) * TRI_CHUNK, n_live)
         limit = torch.minimum(bt, tmax) if kind == "closest" else tmax
-        can = open_ & _slab_plain(o, inv, tmin, limit, boxes, c)
+        can = open_ & _slab_plain(o, inv, tmin, limit, boxes[:, c])
         per_block = torch.zeros(n_blocks * BLOCK_RAYS, dtype=torch.bool,
                                 device=o.device)
         per_block[:r] = can

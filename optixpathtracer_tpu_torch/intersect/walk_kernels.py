@@ -23,8 +23,10 @@ as the reference leaves them to XLA outside Pallas. A wrapper picks a plain
 version only because its tensors lie on the CPU; on a CUDA tensor it
 launches the kernel or raises. `launches` on each kernel wrapper counts its
 launches; `swept` and `tests` on a sweep wrapper hold its last launch's
-chunks swept and ray-triangle tests run per block, from which the kernel's
-bound is computed.
+chunks swept and ray-triangle tests run per block. `needed_work` counts,
+with plain PyTorch, the tests and chunks the inputs need: the closest
+kernel reports exactly that, the occlusion kernel within a stated slack,
+and the kernels' bound is computed from it.
 """
 from __future__ import annotations
 
@@ -33,13 +35,13 @@ import ctypes
 import torch
 
 from .. import _build
-from .dense_kernels import BIG, _mt_plain, _rays, _safe_inv
+from .dense_kernels import BIG, _mt_plain, _rays, _safe_inv, _slab_plain
 from .types import Hit
 
 LANES = 128          # candidate rows are padded to a multiple of this
 BLOCK_RAYS = 256     # rays per block (one CUDA block); the reference: 1024
 BLOCK_SIZES = (128, 256, 512, 1024)
-PIECE = 128          # walk chunks are staged in pieces of this many tris
+CHUNK_STEP = 128     # walk chunks are a multiple of this many tris
 PLAIN_ELEMS = 1 << 24  # elements per step of the plain versions
 _MORT_O = 5  # origin Morton bits per axis in the coherence key
 _MORT_D = 4  # direction Morton bits per axis
@@ -217,6 +219,70 @@ def any_plain(walk_tris, cand, count, o, d, tmin, tmax,
     return blocked.view(-1)[:r]
 
 
+def _real(walk_tris):
+    """[C, chunk] bool: the slots that hold a triangle. Padding has zero
+    edges (the flatten pads with v0 = 1e10 and zero edges), so det = 0
+    for every ray and no ray can hit it: the sweeps skip it."""
+    return (walk_tris[:, 3:9] != 0).any(dim=1)
+
+
+def needed_work(kind, walk_tris, boxes, cand, tnear, count, o, d, tmin, tmax,
+                block_rays=BLOCK_RAYS, slack=False):
+    """The work a walk sweep of these inputs needs, per ray block (int64):
+    (ray-triangle tests, chunks some ray of the block tests), by a plain
+    count model. A block's candidates go in list order. A live ray (tmax >
+    tmin) tests a chunk only when its own slab test passes that chunk,
+    bounded by min(best t so far, tmax) for "closest" and by tmax for an
+    occlusion ray not yet blocked; it then tests the chunk's triangles
+    (padding, `_real`, costs nothing), an occlusion ray in slot order up
+    to its first blocker and no chunk after it. Dead rays cost nothing.
+
+    The kernels' early exit (tnear of the next candidate above the block's
+    max of min(best t, tmax); every ray blocked) is not modelled: for rays
+    with tmin >= 0 it only skips chunks every ray's own test fails, which
+    cost nothing here. The closest kernel reports exactly these counts.
+    The occlusion kernel splits a chunk's triangles across warps, so a
+    ray blocked in a chunk may run from 1 to all of its triangles there;
+    with slack=True the model also returns, per block, how far below and
+    above its tests the occlusion kernel's may lie: (tests, chunks, below,
+    above)."""
+    if kind not in ("closest", "any"):
+        raise ValueError(f"kind {kind!r} is not 'closest' or 'any'")
+    chunk = walk_tris.shape[2]
+    o, d, tmin, tmax = _blocked(o, d, tmin, tmax, block_rays)
+    inv = _safe_inv(d)
+    nb = o.shape[0]
+    real = _real(walk_tris)
+    rank = real.cumsum(dim=1)  # real triangles up to each slot, inclusive
+    best_t = torch.full(tmin.shape, BIG, device=o.device)
+    open_ = tmax > tmin
+    tests, chunks, below, above = (torch.zeros(nb, dtype=torch.long,
+                                               device=o.device)
+                                   for _ in range(4))
+    for bs, c in _sweep_steps(cand, count, block_rays, chunk):
+        limit = (torch.minimum(best_t[bs], tmax[bs]) if kind == "closest"
+                 else tmax[bs])
+        # the rays of blocks [s, B] against their chunks' boxes [s, 1, 6]
+        can = open_[bs] & _slab_plain(o[bs], inv[bs], tmin[bs], limit,
+                                      boxes[:, c].T[:, None, :])
+        chunks[bs] += can.any(dim=1)
+        t, hit = _sweep_mt(walk_tris, c, o[bs], d[bs], tmin[bs], tmax[bs])
+        hit &= can[..., None] & real[c][:, None, :]
+        n_real = rank[c, -1][:, None]  # [s, 1]
+        if kind == "closest":
+            tests[bs] += (can * n_real).sum(dim=1)
+            best_t[bs] = torch.minimum(
+                best_t[bs], torch.where(hit, t, BIG).amin(dim=2))
+        else:
+            blocker = hit.any(dim=2)
+            first = rank[c].gather(1, hit.int().argmax(dim=2))  # [s, B]
+            tests[bs] += torch.where(blocker, first, can * n_real).sum(dim=1)
+            below[bs] += torch.where(blocker, first - 1, 0).sum(dim=1)
+            above[bs] += torch.where(blocker, n_real - first, 0).sum(dim=1)
+            open_[bs] &= ~blocker
+    return (tests, chunks, below, above) if slack else (tests, chunks)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels (csrc/walk_intersect.cu)
 # ---------------------------------------------------------------------------
@@ -286,8 +352,9 @@ def _sweep_ptrs(walk_tris, boxes, cand, count, o, d, tmin, tmax, block_rays,
                 tnear=None):
     r, (n_chunks, _, chunk) = o.shape[0], walk_tris.shape
     nb = _n_blocks(r, block_rays)
-    if chunk % PIECE:
-        raise ValueError(f"walk chunk {chunk} is not a multiple of {PIECE}")
+    if chunk % CHUNK_STEP:
+        raise ValueError(f"walk chunk {chunk} is not a multiple of "
+                         f"{CHUNK_STEP}")
     maxc_pad = cand.shape[-1]
     want = _ray_specs(o, d, tmin, tmax) + [
         (cand, torch.int32, (nb, maxc_pad)), (count, torch.int32, (nb,)),

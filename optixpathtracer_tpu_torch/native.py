@@ -1,12 +1,13 @@
 """ctypes binding to the native (C++) BVH builder.
 
-The port compiles the reference's own source,
-`optixpathtracer_tpu/native/bvh_builder.cpp`, with the reference's flags into
-the port's build directory: the same builder gives the same triangle order,
-hence the same triangle ids, in both packages. (The reference's binding,
-`optixpathtracer_tpu/native/__init__.py`, cannot be imported without jax.)
-If the compile or load fails, `scene.bvh.build_bvh` falls back to its numpy
-builder, as the reference does.
+The port compiles its own copy of the reference's builder,
+`csrc/bvh_builder.cpp` (the code of `optixpathtracer_tpu/native/
+bvh_builder.cpp`, unchanged), with the reference's flags into the port's
+build directory `_build/`, the library named by a hash of the source and
+flags: the same builder gives the same triangle order, hence the same
+triangle ids, in both packages. If the compile or load fails,
+`scene.bvh.build_bvh` falls back to its numpy builder, as the reference
+does.
 """
 from __future__ import annotations
 
@@ -19,11 +20,9 @@ import warnings
 
 import numpy as np
 
-from ._build import BUILD_DIR
+from ._build import BUILD_DIR, CSRC
 
-SOURCE = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "optixpathtracer_tpu", "native", "bvh_builder.cpp")
+SOURCE = os.path.join(CSRC, "bvh_builder.cpp")
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17")
 
 

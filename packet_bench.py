@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time versions of the packet kernels (csrc/packet_intersect.cu) or, with
---dense, of the dense kernels (csrc/dense_intersect.cu) against each other
-on the wavefronts where the engine runs, in one process on one NVIDIA GPU.
+--dense, of the dense kernels (csrc/dense_intersect.cu) or, with --walk, of
+the walk sweeps (csrc/walk_intersect.cu) against each other on the
+wavefronts where the engine runs, in one process on one NVIDIA GPU.
 
-    python3 packet_bench.py [--dense] [NAME=PATH.cu ...]
+    python3 packet_bench.py [--dense | --walk] [NAME=PATH.cu ...]
 
 The repository's own source is always measured, as "current". Each other
 PATH is a version of csrc/packet_intersect.cu with the same two C entry
@@ -36,6 +37,19 @@ or blocked flags bit for bit; it is timed as above and read against one
 bound for all versions, chip_smoke's needed-work bound (the tests
 `dense_kernels.needed_work` counts for these inputs x 54). Printed per
 wavefront and version: ms, the tests the version reports, and the reach.
+
+With --walk, each PATH is a version of csrc/walk_intersect.cu with the
+same C entry points (`walk_closest`, `walk_any`), run on every wavefront
+the walk sweeps serve in one 1080p frame of `diffuse` (closest and shadow
+at bounces 0-2), `layered` (bounces 0-1) and `hall` (the primary and the
+bounce-0 shadow rays; its bounce-1 rays go to the packet engine), after
+the coherence sort and the current source's candidate kernel (block 256).
+Each version must return the current source's t, ids or blocked flags bit
+for bit; it is timed as above and read against one bound for all
+versions, chip_smoke's needed-work bound (the tests
+`walk_kernels.needed_work` counts for these inputs x 54). Printed per
+wavefront and version: ms, the chunks swept and tests the version
+reports against the model's, and the reach.
 """
 import ctypes
 import hashlib
@@ -141,6 +155,47 @@ def dense_launcher(lib):
     return launch
 
 
+def walk_launcher(lib):
+    """launch(kind, walk_tris, boxes, cand, tnear, count, o, d, tmin, tmax)
+    -> (output, counts [2, n_blocks]) for one compiled version of the walk
+    sweeps."""
+    import torch
+    from optixpathtracer_tpu_torch.intersect import walk_kernels as wk
+    fns = {}
+    for kind, name in (("closest", "walk_closest"), ("any", "walk_any")):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = wk._ARGTYPES[name], ctypes.c_int
+        fns[kind] = fn
+
+    def launch(kind, walk_tris, boxes, cand, tnear, count, o, d, tmin, tmax,
+               block_rays=wk.BLOCK_RAYS):
+        r, (n_chunks, _, chunk) = o.shape[0], walk_tris.shape
+        nb, maxc_pad = cand.shape
+        rays = [x.data_ptr() for x in (o, d, tmin, tmax)]
+        counts = torch.zeros((2, nb), dtype=torch.int32, device=o.device)
+        if kind == "closest":
+            outs = (torch.empty(r, device=o.device),
+                    torch.empty(r, dtype=torch.int32, device=o.device))
+            err = fns[kind](
+                *rays, r, block_rays, cand.data_ptr(), tnear.data_ptr(),
+                count.data_ptr(), maxc_pad, boxes.data_ptr(), n_chunks,
+                walk_tris.data_ptr(), chunk, *[x.data_ptr() for x in outs],
+                *[c.data_ptr() for c in counts],
+                torch.cuda.current_stream().cuda_stream)
+        else:
+            outs = (torch.empty(r, dtype=torch.int32, device=o.device),)
+            err = fns[kind](
+                *rays, r, block_rays, cand.data_ptr(), count.data_ptr(),
+                maxc_pad, boxes.data_ptr(), n_chunks, walk_tris.data_ptr(),
+                chunk, outs[0].data_ptr(), *[c.data_ptr() for c in counts],
+                torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{kind} launch failed: CUDA error {err}")
+        return outs, counts
+
+    return launch
+
+
 def time_in_turns(launch, label, *args):
     """Check every version's outputs against the current source's, bit for
     bit, then time them in turns: ({version: counts summed}, {version: [ms
@@ -215,6 +270,55 @@ def dense_rows(card, launch, dev):
     return results
 
 
+def walk_rows(card, launch, dev):
+    """The walk sweep versions on every walk wavefront of `diffuse`,
+    `layered` and `hall`."""
+    from optixpathtracer_tpu_torch.scene import flatten_model
+    from optixpathtracer_tpu_torch.scene.procedural import PRESETS
+    results = []
+    for scene_name, bounces, walk_bounces in (("diffuse", 3, 3),
+                                              ("layered", 2, 2),
+                                              ("hall", 2, 1)):
+        model, camera, lights = PRESETS[scene_name]()
+        full = flatten_model(model, lights, device=dev)
+        scene = full if full.opaque_scene is None else full.opaque_scene
+        closest, shadow, _ = cs.frame_waves(full, camera, bounces, dev)
+        waves = ([("closest", f"bounce-{b}", w)
+                  for b, w in enumerate(closest[:walk_bounces])]
+                 + [("any", f"bounce-{b} shadow", w)
+                    for b, w in enumerate(shadow[:walk_bounces])])
+        for kind, label, rays in waves:
+            srays, boxes, _, (cand, tnear, count) = cs.walk_prepare(
+                scene, rays, 256)
+            args = (kind, scene.walk_tris, boxes, cand, tnear, count, *srays)
+            counts, ms = time_in_turns(launch, f"{scene_name} {kind} {label}",
+                                       *args)
+            bound_ms, bound_by, need, chunks, _, _ = cs.walk_bound(
+                card, kind, scene, boxes, cand, tnear, count, srays, 256)
+            need, chunks = int(need.sum()), int(chunks.sum())
+            live = int((srays[3] > srays[2]).sum())
+            cs.log(f"{scene_name} walk_{kind} {label} ({srays[0].shape[0]} "
+                   f"rays, {live} live, {float(count.float().mean()):.1f} "
+                   f"candidates a block; {chunks} chunks and {need:.4g} "
+                   f"tests needed, bound {bound_ms:.4f} ms, {bound_by}):")
+            for name in launch:
+                mean = sum(ms[name]) / len(ms[name])
+                swept, tests = counts[name]
+                row = {"scene": scene_name, "kind": kind, "wavefront": label,
+                       "version": name, "ms": mean, "ms_all": ms[name],
+                       "swept": swept, "tests": tests,
+                       "needed_chunks": chunks, "needed_tests": need,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "reach": bound_ms / mean}
+                results.append(row)
+                cs.log(f"  {name:>12}: {mean:.4f} ms "
+                       f"[{', '.join(f'{x:.4f}' for x in ms[name])}], "
+                       f"{swept} chunks swept, {tests:.4g} tests reported "
+                       f"({tests / need:.2f}x needed), reach "
+                       f"{row['reach']:.1%}")
+    return results
+
+
 def packet_rows(card, launch, dev):
     """The packet versions on hall's four packet wavefronts."""
     from optixpathtracer_tpu_torch.scene import flatten_model
@@ -261,20 +365,22 @@ def main(argv):
         return 1
     from optixpathtracer_tpu_torch import _build
 
-    dense = "--dense" in argv
-    source = "dense_intersect.cu" if dense else "packet_intersect.cu"
+    mode = next((a for a in argv if a in ("--dense", "--walk")), None)
+    source = {"--dense": "dense_intersect.cu", "--walk": "walk_intersect.cu",
+              None: "packet_intersect.cu"}[mode]
     variants = {"current": os.path.join(_build.CSRC, source)}
-    variants.update(arg.split("=", 1) for arg in argv if arg != "--dense")
+    variants.update(arg.split("=", 1) for arg in argv if arg != mode)
     card = cs.Card()
     cs.log(f"card: {card.name_power}, max SM clock {card.max_sm_mhz:.0f} MHz"
            f"; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     libs = build(variants)
     cs.log(f"{len(libs)} versions built in {time.perf_counter() - t0:.1f} s")
-    make = dense_launcher if dense else launcher
+    make, rows_of = {"--dense": (dense_launcher, dense_rows),
+                     "--walk": (walk_launcher, walk_rows),
+                     None: (launcher, packet_rows)}[mode]
     launch = {name: make(lib) for name, lib in libs.items()}
-    rows = (dense_rows if dense else packet_rows)(card, launch,
-                                                 torch.device("cuda"))
+    rows = rows_of(card, launch, torch.device("cuda"))
     print(json.dumps({"card": card.name_power, "rows": rows}))
     return 0
 

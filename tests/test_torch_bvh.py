@@ -129,3 +129,47 @@ def test_bvh_is_cpu_only(case):
     o = torch.zeros(4, 3, device="meta")
     with pytest.raises(ValueError, match="CPU"):
         bvh_traverse.intersect_closest(scene, o, o)
+
+
+def _preset_triangles(name):
+    """(v0, v1, v2) float32 of a port preset's meshes in model order, as
+    the flatten hands them to the BVH builder."""
+    from optixpathtracer_tpu_torch.scene.procedural import PRESETS
+    model, _, _ = PRESETS[name]()
+    tris = [[], [], []]
+    for mesh in model.meshes:
+        m = mesh.model_matrix()
+        pos = mesh.positions.astype(np.float64) @ m[:3, :3].T + m[:3, 3]
+        idx = mesh.indices.astype(np.int64)
+        for k in range(3):
+            tris[k].append(pos[idx[:, k]])
+    return [np.concatenate(t).astype(np.float32) for t in tris]
+
+
+def test_native_builder_is_the_ports_own_source():
+    import os
+
+    import optixpathtracer_tpu_torch
+    from optixpathtracer_tpu_torch import native
+    pkg = os.path.dirname(os.path.abspath(optixpathtracer_tpu_torch.__file__))
+    assert os.path.commonpath([pkg, os.path.abspath(native.SOURCE)]) == pkg
+    assert os.path.isfile(native.SOURCE)
+    assert native.native_available()  # no fallback to the numpy builder
+
+
+@pytest.mark.parametrize("preset", ["scene3_cornell", "diffuse"])
+def test_native_builder_matches_the_reference(preset):
+    """The port's build of its own bvh_builder.cpp gives the reference's
+    build of its source, array for array: the same triangle order, so the
+    same triangle ids in both packages."""
+    from optixpathtracer_tpu import native as jnative
+    from optixpathtracer_tpu_torch import native
+    assert jnative.native_available() and native.native_available()
+    v0, v1, v2 = _preset_triangles(preset)
+    got = native.build_bvh_native(v0, v1, v2)
+    want = jnative.build_bvh_native(v0, v1, v2)
+    assert got is not None and want is not None
+    assert len(got.tri_order) == len(v0) > 0
+    for field in want._fields:
+        np.testing.assert_array_equal(getattr(got, field),
+                                      getattr(want, field), err_msg=field)

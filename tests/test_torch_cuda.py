@@ -283,26 +283,44 @@ def _check_walk_kernels(scene, o, d, tmin, tmax, block_rays):
     """Each walk kernel against its plain version on one query."""
     perm = wk._coherence_perm(scene, o, d)
     rays = [x[perm].contiguous() for x in (o, d, tmin, tmax)]
-    boxes = wk._chunk_boxes(scene)
+    return _check_walk_sweeps(scene.walk_tris, wk._chunk_boxes(scene), rays,
+                              block_rays)
+
+
+def _check_walk_sweeps(walk_tris, boxes, rays, block_rays):
+    """The candidate kernel and both sweeps against their plain versions on
+    one query of (sorted) rays: entries bit-identical, t, ids and blocked
+    flags identical; per block, the closest kernel's tests and chunks swept
+    exactly the needed-work counts of `wk.needed_work`, the occlusion
+    kernel's chunks exactly and its tests within the model's slack (a ray
+    blocked in a chunk runs from 1 to all of the chunk's real triangles
+    there, as the warps' slices find the blocker). Returns (ids, blocked)."""
     entry = wk.candidates_kernel(boxes, *rays, block_rays)
     assert torch.equal(entry, wk.candidates_plain(boxes, *rays, block_rays))
     cand, tnear, count = wk.sort_candidates(entry)
-    kt, ki = wk.closest_kernel(scene.walk_tris, boxes, cand, tnear, count,
-                               *rays, block_rays)
-    pt, pi = wk.closest_plain(scene.walk_tris, cand, count, *rays,
-                              block_rays)
+    kt, ki = wk.closest_kernel(walk_tris, boxes, cand, tnear, count, *rays,
+                               block_rays)
+    pt, pi = wk.closest_plain(walk_tris, cand, count, *rays, block_rays)
     torch.cuda.synchronize()
     assert torch.equal(ki, pi)
     assert torch.equal(kt, pt)
     swept, tests = wk.closest_kernel.swept, wk.closest_kernel.tests
     assert swept.shape == tests.shape == count.shape
-    assert (swept <= count).all() and tests.sum() > 0
-    assert (tests <= swept * block_rays * scene.walk_chunk).all()
-    kb = wk.any_kernel(scene.walk_tris, boxes, cand, count, *rays,
-                       block_rays)
-    pb = wk.any_plain(scene.walk_tris, cand, count, *rays, block_rays)
+    need, chunks = wk.needed_work("closest", walk_tris, boxes, cand, tnear,
+                                  count, *rays, block_rays)
+    assert torch.equal(tests.long(), need) and tests.sum() > 0
+    assert torch.equal(swept.long(), chunks) and (swept <= count).all()
+    kb = wk.any_kernel(walk_tris, boxes, cand, count, *rays, block_rays)
+    pb = wk.any_plain(walk_tris, cand, count, *rays, block_rays)
     assert torch.equal(kb, pb)
-    assert not kb[rays[3] < 0].any()  # dead lanes are never blocked
+    assert not kb[rays[3] <= rays[2]].any()  # dead lanes are never blocked
+    need, chunks, below, above = wk.needed_work(
+        "any", walk_tris, boxes, cand, tnear, count, *rays, block_rays,
+        slack=True)
+    tests = wk.any_kernel.tests.long()
+    assert torch.equal(wk.any_kernel.swept.long(), chunks)
+    assert (tests >= need - below).all() and (tests <= need + above).all()
+    assert tests.sum() > 0
     return ki, kb
 
 
@@ -332,6 +350,77 @@ def test_walk_kernels_chunk_256(cuda):
     r = o.shape[0]
     _check_walk_kernels(scene, o, d, torch.zeros(r, device=cuda),
                         torch.full((r,), 100.0, device=cuda), 256)
+
+
+def test_walk_kernels_scattered_many_candidate_tiles(cuda):
+    """The full `diffuse` scene (149 chunks) and a scattered wavefront from
+    its primaries' hit points (dead lanes in live warps, tmax = tmin lanes,
+    a ragged last block): blocks list more than one 64-candidate tile, and
+    the sweeps keep their answers and counts across tiles."""
+    scene, o, d = _walk_scene_rays(cuda, segments=None, size=(96, 64))
+    o, d = o[:-37].contiguous(), d[:-37].contiguous()
+    r = o.shape[0]
+    hit = wk.intersect_closest(scene, o, d, 0.0, 100.0)
+    t = torch.where(hit.hit, hit.t, torch.full_like(hit.t, wk.BIG))
+    rays = _scattered(o, d, t, seed=3)
+    perm = wk._coherence_perm(scene, rays[0], rays[1])
+    rays = [x[perm].contiguous() for x in rays]
+    boxes = wk._chunk_boxes(scene)
+    for block_rays in (256, 1024):
+        count = wk.sort_candidates(wk.candidates_kernel(boxes, *rays,
+                                                        block_rays))[2]
+        assert int(count.max()) > 64 and r % block_rays
+        ki, kb = _check_walk_sweeps(scene.walk_tris, boxes, rays, block_rays)
+        assert (ki >= 0).any() and kb.any() and not kb.all()
+
+
+@pytest.mark.parametrize("chunk,block_rays", [(128, 256), (256, 256),
+                                              (128, 1024), (256, 1024)])
+def test_walk_ties_across_chunks(cuda, chunk, block_rays):
+    """Two coincident triangles, the higher id in the first candidate chunk
+    and the lower id in a chunk 41 candidates later, 40 chunks between them
+    that every ray's box test passes and whose triangles lie behind;
+    padding slots inside the chunks: both sweeps equal their plain
+    versions, and closest returns the lower id whichever warp's slice and
+    chunk finds it first."""
+    n_chunks = 64
+    v0 = np.full((n_chunks * chunk, 3), 1e10, np.float32)
+    e1 = np.zeros_like(v0)
+    e2 = np.zeros_like(v0)
+
+    def put(c, slot, a, b, c_):
+        i = c * chunk + slot
+        v0[i], e1[i], e2[i] = a, np.subtract(b, a), np.subtract(c_, a)
+
+    tri = ((-4.0, -4.0, 10.0), (4.0, -4.0, 10.0), (-4.0, 4.0, 10.0))
+    late, early = 2, 50            # chunk ids: the lower id comes later
+    put(early, chunk - 9, *tri)    # the last warp's slice of its chunk
+    put(early, 3, (3.0, 3.0, 1.0), (3.1, 3.0, 1.0), (3.0, 3.1, 1.0))
+    put(late, 5, *tri)             # the first warp's slice
+    put(late, 6, (3.0, 3.0, 9.5), (3.1, 3.0, 9.5), (3.0, 3.1, 9.5))
+    for i in range(40):            # box entry at z 5 .. 9, hit beyond T
+        put(8 + i, 0, (4.0, 0.0, 5.0 + 0.1 * i), (-4.0, -4.5, 20.0),
+            (-4.0, 4.5, 20.0))
+    walk_tris, _, boxes = _walk_layout(v0, e1, e2, chunk, cuda)
+    rng = np.random.default_rng(4)
+    n = 3 * block_rays - 5
+    target = np.concatenate([rng.uniform(-2.0, -0.2, (n, 2)),
+                             np.full((n, 1), 10.0)], axis=1)
+    o = rng.normal(0.0, 0.01, (n, 3))
+    d = target - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = np.full(n, 100.0)
+    tmax[::7] = 12.0
+    tmax[::9] = -1.0
+    rays = [torch.tensor(x, dtype=torch.float32, device=cuda).contiguous()
+            for x in (o, d, np.zeros(n), tmax)]
+    ki, kb = _check_walk_sweeps(walk_tris, boxes, rays, block_rays)
+    live = rays[3] > 0
+    assert (ki[live] == late * chunk + 5).all() and kb[live].all()
+    cand = wk.sort_candidates(wk.candidates_kernel(boxes, *rays,
+                                                   block_rays))[0]
+    rank = (cand == late).int().argmax(dim=1)
+    assert ((cand[:, 0] == early) & (rank == 41)).all()
 
 
 def test_walk_launch_errors_raise(cuda):

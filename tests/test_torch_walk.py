@@ -377,3 +377,225 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(walk_case):
     assert counts == (walk_kernels.candidates_kernel.launches,
                       walk_kernels.closest_kernel.launches,
                       walk_kernels.any_kernel.launches)
+
+
+# ---------------------------------------------------------------------------
+# The needed-work count model (walk_kernels.needed_work), the sweeps' bound
+# ---------------------------------------------------------------------------
+
+def _np_inv(d):
+    tiny = np.where(d >= 0, np.float32(1e-20), np.float32(-1e-20))
+    return np.float32(1.0) / np.where(np.abs(d) < np.float32(1e-20), tiny, d)
+
+
+def _np_slab(o, inv, tmin, limit, box):
+    """The kernels' slab test of one ray against one box, in float32."""
+    t0 = (box[:3] - o) * inv
+    t1 = (box[3:] - o) * inv
+    lo, hi = np.minimum(t0, t1), np.maximum(t0, t1)
+    t_near = max(max(lo[0], lo[1]), lo[2])
+    t_far = min(min(hi[0], hi[1]), hi[2])
+    return t_near <= t_far and t_far >= tmin and t_near <= limit
+
+
+def _np_mt(o, d, tmin, tmax, tri):
+    """Moller-Trumbore of one ray against the [9, chunk] triangle rows of
+    one chunk, in the kernels' operation order, in float32: (t, hit)."""
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tri
+    pvx = d[1] * e2z - d[2] * e2y
+    pvy = d[2] * e2x - d[0] * e2z
+    pvz = d[0] * e2y - d[1] * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    ok = np.abs(det) > np.float32(1e-12)
+    inv_det = np.where(ok, np.float32(1.0) / np.where(ok, det, 1), 0)
+    tvx, tvy, tvz = o[0] - v0x, o[1] - v0y, o[2] - v0z
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    v = (d[0] * qvx + d[1] * qvy + d[2] * qvz) * inv_det
+    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+    hit = ok & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > tmin) & (t < tmax)
+    return t.astype(np.float32), hit
+
+
+def _walk_query(scene, o, d, tmax, block_rays=256):
+    """Coherence-sorted rays (tmin 0) and their sorted candidates, through
+    the port's plain versions: (rays, boxes, cand, tnear, count)."""
+    o, d = _t(o), _t(d)
+    tmax = torch.tensor(np.broadcast_to(np.float32(tmax), (o.shape[0],)))
+    perm = walk_kernels._coherence_perm(scene, o, d)
+    rays = tuple(x[perm].contiguous()
+                 for x in (o, d, torch.zeros(o.shape[0]), tmax))
+    boxes = walk_kernels._chunk_boxes(scene)
+    entry = walk_kernels.candidates_plain(boxes, *rays, block_rays)
+    return (rays, boxes) + walk_kernels.sort_candidates(entry)
+
+
+def _literal_counts(kind, scene, query, block_rays=256, old=False):
+    """Per block (tests, chunks), by a literal loop over each block's
+    candidates in list order and each of its rays, with the sweeps' early
+    exits. old=True counts as a one-thread-per-ray sweep's counter charges:
+    a chunk some ray passes runs on every warp with a passing lane,
+    closest lanes test all chunk slots, occlusion lanes every slot until
+    their first blocker (padding included). Also asserts that the early exit only ever skips
+    chunks no ray's own slab test passes."""
+    rays, boxes, cand, tnear, count = query
+    o, d, tmin, tmax = (x.numpy() for x in rays)
+    walk = scene.walk_tris.numpy()
+    real = (walk[:, 3:9] != 0).any(axis=1)
+    box = boxes.numpy()
+    inv = _np_inv(d)
+    nb = cand.shape[0]
+    tests, chunks = np.zeros(nb, np.int64), np.zeros(nb, np.int64)
+    for b in range(nb):
+        idx = range(b * block_rays, min((b + 1) * block_rays, o.shape[0]))
+        best = {i: np.float32(3.4e38) for i in idx}
+        blocked = {i: False for i in idx}
+        for j in range(int(count[b])):
+            c = int(cand[b, j])
+            limit = {i: min(best[i], tmax[i]) if kind == "closest"
+                     else tmax[i] for i in idx}
+            passes = [i for i in idx
+                      if tmax[i] > tmin[i] and not blocked[i]
+                      and _np_slab(o[i], inv[i], tmin[i], limit[i], box[:, c])]
+            # the kernels' early exits; dead padding lanes carry tmax = -1
+            pad = -1.0 if len(idx) < block_rays else -np.inf
+            if kind == "closest":
+                stop = j > 0 and tnear[b, j] > max(max(limit.values()), pad)
+            else:
+                stop = not any(tmax[i] > tmin[i] and not blocked[i]
+                               for i in idx)
+            if stop:
+                assert not passes, (b, j)
+                break
+            if not passes:
+                continue
+            chunks[b] += 1
+            runs = passes
+            if old:  # every lane of a warp with a passing lane runs
+                warps = {(i - b * block_rays) // 32 for i in passes}
+                runs = [i for i in idx if (i - b * block_rays) // 32 in warps
+                        and (kind == "closest" or (tmax[i] > tmin[i]
+                                                   and not blocked[i]))]
+                # and padding lanes of such warps run too
+                pad_lanes = sum(
+                    1 for w in warps
+                    for lane in range(32)
+                    if b * block_rays + 32 * w + lane >= o.shape[0])
+                if kind == "closest":
+                    tests[b] += pad_lanes * walk.shape[2]
+            for i in runs:
+                t, hit = _np_mt(o[i], d[i], tmin[i], tmax[i], walk[c, :9])
+                hit_real = hit & real[c]
+                if kind == "closest":
+                    tests[b] += walk.shape[2] if old else int(real[c].sum())
+                    if hit_real.any():
+                        best[i] = min(best[i], t[hit_real].min())
+                else:
+                    slots = hit if old else hit_real
+                    if slots.any():
+                        first = int(np.argmax(slots))
+                        tests[b] += (first + 1 if old
+                                     else int(real[c][:first + 1].sum()))
+                        blocked[i] = True
+                    else:
+                        tests[b] += (walk.shape[2] if old
+                                     else int(real[c].sum()))
+    return tests, chunks
+
+
+_WORK_TMAX = {"mixed": _mixed_tmax, "1.0": lambda n: np.where(
+    np.arange(n) % 11 == 0, np.float32(-1.0), np.float32(1.0))}
+
+
+@pytest.mark.parametrize("kind", ["closest", "any"])
+@pytest.mark.parametrize("tmax", sorted(_WORK_TMAX))
+def test_needed_work_matches_a_literal_loop(walk_case, kind, tmax):
+    """The count model against a per-ray, per-candidate loop, with dead
+    lanes (every 11th ray) and short rays, and never above what a
+    one-thread-per-ray sweep's counter charges."""
+    _, scene, o, d = walk_case
+    query = _walk_query(scene, o, d, _WORK_TMAX[tmax](o.shape[0]))
+    rays, boxes, cand, tnear, count = query
+    tests, chunks = walk_kernels.needed_work(
+        kind, scene.walk_tris, boxes, cand, tnear, count, *rays)
+    want_tests, want_chunks = _literal_counts(kind, scene, query)
+    np.testing.assert_array_equal(tests.numpy(), want_tests)
+    np.testing.assert_array_equal(chunks.numpy(), want_chunks)
+    assert tests.dtype == torch.int64 and tests.sum() > 0
+    assert (chunks <= count).all()
+    old_tests, old_chunks = _literal_counts(kind, scene, query, old=True)
+    assert (tests.numpy() <= old_tests).all()
+    np.testing.assert_array_equal(chunks.numpy(), old_chunks)
+    if kind == "any":
+        _, _, below, above = walk_kernels.needed_work(
+            kind, scene.walk_tris, boxes, cand, tnear, count, *rays,
+            slack=True)
+        assert (below >= 0).all() and (above >= 0).all()
+        assert (below <= tests).all() and (above + below).sum() > 0
+
+
+def _merge_key(t, tri_id):
+    """The CUDA sweeps' merge key of a hit, as uint64: t's float32 bits
+    mapped to an order-preserving uint32 in the high word, the id in the
+    low word; the lowest key is the nearest hit, lowest id at equal t."""
+    bits = np.asarray(t, np.float32).view(np.uint32).astype(np.uint64)
+    ordered = np.where(bits & 0x80000000, ~bits & 0xFFFFFFFF,
+                       bits | 0x80000000)
+    return (ordered << np.uint64(32)) | np.asarray(tri_id).astype(np.uint64)
+
+
+def test_coincident_triangles_merge_to_the_lowest_id():
+    """Coincident triangles in two candidate chunks: the kernels' merge
+    rule (the lowest key over every warp's slice of every swept chunk, in
+    whatever order they finish) gives the plain sweep's (t, lowest id), and
+    so does the plain sweep over the candidates in reverse order."""
+    jscene = _duplicated_scene()
+    scene = scene_from_jax(jax_leaves(jscene), device="cpu")
+    pairs = _twins(scene)
+    chunk = scene.walk_chunk
+    across = pairs[pairs[:, 0] // chunk != pairs[:, 1] // chunk]
+    assert len(across) >= 1
+    v0, e1, e2 = (x.numpy()[across[:, 0]] for x in (
+        scene.tri_v0, scene.tri_e1, scene.tri_e2))
+    n = np.cross(e1, e2)
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    o = (v0 + (e1 + e2) / 3.0 + 0.05 * n).astype(np.float32)
+    d = (-n).astype(np.float32)
+    rays, boxes, cand, tnear, count = _walk_query(scene, o, d, 100.0)
+    t, tri_id = walk_kernels.closest_plain(scene.walk_tris, cand, count,
+                                           *rays)
+    assert (tri_id.numpy() >= 0).all()
+    back = torch.stack([torch.cat([row[:k].flip(0), row[k:]])
+                        for row, k in zip(cand, count.tolist())])
+    t_back, id_back = walk_kernels.closest_plain(scene.walk_tris, back,
+                                                 count, *rays)
+    assert torch.equal(id_back, tri_id) and torch.equal(t_back, t)
+    # every slice (an eighth of a chunk, as a warp sweeps it) of every
+    # candidate chunk reports its own nearest, lowest-id hit; merged
+    # last-to-first, the lowest key is the plain sweep's answer
+    o_s, d_s, tmin_s, tmax_s = (x.numpy() for x in rays)
+    walk = scene.walk_tris.numpy()
+    rng = np.random.default_rng(0)
+    for i in range(o_s.shape[0]):
+        b = i // walk_kernels.BLOCK_RAYS
+        keys = []
+        for c in cand[b, :int(count[b])].tolist():
+            th, hit = _np_mt(o_s[i], d_s[i], tmin_s[i], tmax_s[i],
+                             walk[c, :9])
+            for s0 in range(0, chunk, chunk // 8):
+                sl = np.nonzero(hit[s0:s0 + chunk // 8])[0]
+                if sl.size:
+                    k = s0 + sl[np.argmin(th[s0 + sl])]  # lowest id on ties
+                    keys.append(_merge_key(th[k], c * chunk + k))
+        keys = np.array(keys, np.uint64)[rng.permutation(len(keys))]
+        best = keys.min()
+        # a tie: the other twin's slice reports the same t, a higher id
+        assert ((keys >> np.uint64(32)) == (best >> np.uint64(32))).sum() >= 2
+        assert (best & 0xFFFFFFFF) == int(tri_id[i])
+        assert (np.uint32(best >> np.uint64(32)) ^ np.uint32(0x80000000)
+                ).view(np.float32) == t[i].numpy()
+    # the rays are in coherence order: each twin pair's lower id, once
+    np.testing.assert_array_equal(np.sort(tri_id.numpy()),
+                                  np.sort(across[:, 0]))
