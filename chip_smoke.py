@@ -37,18 +37,20 @@ runs the dense closest kernel over the 40-triangle cutout sub-scene).
    block (the union tile of packet_kernels.smem_plan), and at each hall
    wavefront the subchunks swept a packet, the triangle and slab tests,
    the bound and its reach (bound / kernel ms).
-   Each kernel's bound is computed from this run's inputs: the
-   ray-triangle tests times the FP32 operations of one test (plus the
-   packet kernels' ray-subchunk slab tests, the candidate kernel's
-   all-pairs slab tests), over 132 SMs x 128 lanes at the card's max SM
-   clock, or the bytes over 3.35 TB/s, whichever is larger. For the dense
-   and walk sweeps the tests are those the inputs need, from the plain
-   count models `dense_kernels.needed_work` and `walk_kernels.needed_work`
-   (live rays whose own slab test passes a chunk, real triangles,
-   occlusion up to the first blocker): the dense kernels' and the walk
-   closest kernel's per-block counts must equal them, the walk occlusion
-   kernel's chunks too and its tests lie within the model's slack; the
-   packet kernels' are the tests they report. Every walk sweep is timed
+   Each kernel's bound is computed from this run's inputs: the FP32
+   operations of its ray-triangle tests (plus the packet kernels'
+   ray-subchunk slab tests, the candidate kernel's all-pairs slab tests),
+   over 132 SMs x 128 lanes at the card's max SM clock, or the bytes over
+   3.35 TB/s, whichever is larger. For the dense and walk sweeps the tests
+   are those the inputs need, from the plain count models
+   `dense_kernels.needed_work` and `walk_kernels.needed_work` (live rays
+   whose own slab test passes a chunk, real triangles, occlusion up to the
+   first blocker), each charged the operations up to where it can end
+   (once u, or v, rules the hit out; else at t): the dense kernels' and
+   the walk closest kernel's per-block counts must equal them, the walk
+   occlusion kernel's chunks too and its tests lie within the model's
+   slack. The packet kernels' are the tests they report, each charged a
+   whole test. Every walk sweep is timed
    and bounded at every wavefront. Each kernel's row is at the wavefront
    the frame first runs it on: closest and candidates at the primary
    wavefront (hall's dense closest at its first cutout chain, packet at
@@ -116,6 +118,11 @@ WALK_CHUNKS_256 = 100    # MAX_WALK_CHUNKS giving `diffuse` 256-tri chunks
 # + 7 bound tests) and the candidate kernel's slab test (6 sub + 6 mul + 10
 # min/max + 3 compares, then its live test, max(t_near, 0) and the min).
 MT_OPS = 54
+# What a needed test costs up to where it can end (mt() in
+# csrc/walk_intersect.cu): 28 once u rules the hit out (cross, det, |det|
+# test, division, origin offset, u and its two range tests), 46 once v
+# does (+ q, v, v >= 0, u + v and its test), all 54 where it goes on to t.
+MT_EXIT_OPS = (28, 46, MT_OPS)
 CAND_OPS = 28
 # the packet kernels' subchunk slab test (sub_slab(): per axis 2 sub, 2
 # mul, 2 min/max and the running max and min, then 4 compares)
@@ -339,17 +346,33 @@ def subsample(r, dev):
 # Dense kernels
 # ---------------------------------------------------------------------------
 
+def needed_ops(work):
+    """The FP32 operations of a count model's needed tests (a
+    `NeededWork`), each up to where it can end (MT_EXIT_OPS)."""
+    return sum(n * ops for n, ops in zip(work.exits.sum(dim=0).tolist(),
+                                         MT_EXIT_OPS))
+
+
+def exit_shares(work):
+    """'u a% / v b% / t c%': the shares of the needed tests by where they
+    can end."""
+    n = work.exits.sum(dim=0).tolist()
+    return " / ".join(f"{k} {x / max(sum(n), 1):.1%}"
+                      for k, x in zip("uvt", n))
+
+
 def dense_bound(card, kind, tris, boxes, n_live, rays):
-    """(bound ms, bound_by, tests) of a dense sweep of `rays`: the tests
-    these inputs need (`dense_kernels.needed_work`: live rays, real
-    triangles, occlusion up to the first blocker) x MT_OPS, or the bytes
-    (rays in, answers out, the real triangles and the boxes)."""
+    """(bound ms, bound_by, work) of a dense sweep of `rays`: the
+    operations of the tests these inputs need (`dense_kernels.needed_work`,
+    a `NeededWork`: live rays, real triangles, occlusion up to the first
+    blocker; `needed_ops`), or the bytes (rays in, answers out, the real
+    triangles and the boxes)."""
     from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
-    tests = int(dk.needed_work(kind, tris, boxes, n_live, *rays)[0].sum())
+    work = dk.needed_work(kind, tris, boxes, n_live, *rays)
     r = rays[0].shape[0]
     n_bytes = r * (32 + (8 if kind == "closest" else 4)) + n_live * 36 \
         + boxes.numel() * 4
-    return (*card.bound(tests * MT_OPS, n_bytes), tests)
+    return (*card.bound(needed_ops(work), n_bytes), work)
 
 
 def dense_phase(name, scene, closest, shadow, card, stats,
@@ -392,8 +415,9 @@ def dense_phase(name, scene, closest, shadow, card, stats,
                               20 if b == 0 else 10)
             launch(tris, boxes, n_live, *w)
             got = int(launch.tests.sum())
-            bound_ms, bound_by, need = dense_bound(card, kind, tris, boxes,
+            bound_ms, bound_by, work = dense_bound(card, kind, tris, boxes,
                                                    n_live, w)
+            need = int(work.tests.sum())
             if got != need:
                 raise AssertionError(f"{name} {kname} {label}: the kernel "
                                      f"ran {got} tests, the inputs need "
@@ -403,8 +427,9 @@ def dense_phase(name, scene, closest, shadow, card, stats,
                          "tests": need, "live_rays": live})
             log(f"  {name} {kname} {label}: kernel {ms:.3f} ms, bound "
                 f"{bound_ms:.3f} ms ({bound_by}; {need:.4g} needed tests, "
-                f"{need / max(live, 1):.1f} a live ray, {live} of "
-                f"{w[0].shape[0]} rays live), reach {bound_ms / ms:.1%}")
+                f"{need / max(live, 1):.1f} a live ray, ending at "
+                f"{exit_shares(work)}, {live} of {w[0].shape[0]} rays "
+                f"live), reach {bound_ms / ms:.1%}")
         first = rows[0]
         log(f"  {name} {kname}: kernel {first['ms']:.3f} ms, plain "
             f"{plain_ms:.1f} ms, bound {first['bound_ms']:.3f} ms at the "
@@ -451,24 +476,21 @@ def walk_block_rays(srays, cand, count, block_rays, n_sub):
 
 def walk_bound(card, kind, scene, boxes, cand, tnear, count, srays,
                block_rays):
-    """(bound ms, bound_by, tests, chunks, below, above) of a walk sweep
-    of the sorted rays `srays`: the tests these inputs need
-    (`walk_kernels.needed_work`: live rays whose own slab test passes a
-    candidate chunk, its real triangles, occlusion up to the first
-    blocker) x MT_OPS, or the bytes (rays in, answers out, the candidate
-    rows, the chunk triangles and boxes). tests, chunks and the occlusion
-    slack (below, above) are per block."""
+    """(bound ms, bound_by, work) of a walk sweep of the sorted rays
+    `srays`: the operations of the tests these inputs need
+    (`walk_kernels.needed_work`, a `NeededWork`: live rays whose own slab
+    test passes a candidate chunk, its real triangles, occlusion up to the
+    first blocker; `needed_ops`), or the bytes (rays in, answers out, the
+    candidate rows, the chunk triangles and boxes)."""
     from optixpathtracer_tpu_torch.intersect import walk_kernels as wk
-    tests, chunks, below, above = wk.needed_work(
-        kind, scene.walk_tris, boxes, cand, tnear, count, *srays, block_rays,
-        slack=True)
+    work = wk.needed_work(kind, scene.walk_tris, boxes, cand, tnear, count,
+                          *srays, block_rays)
     r = srays[0].shape[0]
     nb, maxc_pad = cand.shape
     n_bytes = (r * (40 if kind == "closest" else 36)
                + nb * maxc_pad * (8 if kind == "closest" else 4) + nb * 4
                + scene.walk_tris.numel() * 4 + boxes.numel() * 4)
-    return (*card.bound(int(tests.sum()) * MT_OPS, n_bytes), tests, chunks,
-            below, above)
+    return (*card.bound(needed_ops(work), n_bytes), work)
 
 
 def walk_check(name, label, scene, rays, kind, n_sub=None):
@@ -545,9 +567,10 @@ def walk_times(scene, rays, kind, block_rays, reps=10, card=None):
     out["live"] = int((srays[3] > srays[2]).sum())
     if card is not None:
         got_tests, got_swept = kernel.tests.long(), kernel.swept.long()
-        out["bound_ms"], out["bound_by"], need, chunks, below, above = \
-            walk_bound(card, kind, scene, boxes, cand, tnear, count, srays,
-                       block_rays)
+        out["bound_ms"], out["bound_by"], work = walk_bound(
+            card, kind, scene, boxes, cand, tnear, count, srays, block_rays)
+        need, chunks, below, above = (work.tests, work.chunks, work.below,
+                                      work.above)
         if not torch.equal(got_swept, chunks):
             raise AssertionError(f"walk_{kind}: the kernel swept "
                                  f"{int(got_swept.sum())} chunks, the inputs "
@@ -560,6 +583,7 @@ def walk_times(scene, rays, kind, block_rays, reps=10, card=None):
                                  f"{out['tests']} tests, the inputs need "
                                  f"{int(need.sum())}")
         out["needed_tests"] = int(need.sum())
+        out["exits"] = exit_shares(work)
     return out
 
 
@@ -602,7 +626,8 @@ def walk_phase(name, scene, waves, card, stats, dense_table=False,
                 f"{' shadow' if kind == 'any' else ''}: sweep "
                 f"{t['sweep']:.3f} ms, bound {t['bound_ms']:.3f} ms "
                 f"({t['bound_by']}; {t['needed_tests']:.4g} needed tests, "
-                f"{t['tests']:.4g} run, {t['live']} live rays), reach "
+                f"ending at {t['exits']}, {t['tests']:.4g} run, "
+                f"{t['live']} live rays), reach "
                 f"{t['bound_ms'] / t['sweep']:.1%}")
     prim = {"closest": per["closest"][0], "any": per["any"][0]}
 

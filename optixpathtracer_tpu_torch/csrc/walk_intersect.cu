@@ -85,13 +85,15 @@
 //      (48 registers; 4 CTAs and 56 registers measured slower).
 //   e. Early exits in a test. A lane whose u, then v, rules the hit out
 //      leaves the test; the operations it skips could only confirm the
-//      miss, so answers are unchanged, and the bound still charges the
-//      whole test.
+//      miss, so answers are unchanged. The bound charges each needed test
+//      the operations up to where it can end (`NeededWork.exits`).
 // Measured on the H100 (PERF.md section 6, packet_bench.py --walk): each
 // step pays; a cp.async copy of the next slice before the slab tests and
-// a sign test before the division did not, and are not here. Every sweep writes, per block, the chunks some ray swept and the
-// ray-triangle tests its threads ran; the closest sweep's equal the count
-// model's, the occlusion sweep's lie within the stated slack of it.
+// a sign test before the division did not, and are not here.
+// Every sweep writes, per block, the chunks some ray swept and the
+// ray-triangle tests its lanes ran, one count per test where it runs; the
+// closest sweep's equal the count model's, the occlusion sweep's lie
+// within the stated slack of it.
 
 #include <cuda_runtime.h>
 
@@ -407,7 +409,6 @@ __device__ __forceinline__ void sweep(
       const int n_real = stage_slice(s_tri, tris, chunk, c, warp * slice,
                                      slice, lane);
       __syncwarp();
-      if (kClosest && lane == 0) n_tests += total * n_real;
       for (int g = 0; g < total; g += 32) {
         // a group of n <= 16 rays takes 32 / w lanes a ray (w the power of
         // two from 4 up that holds n), each lane every (32 / w)-th triangle
@@ -426,6 +427,7 @@ __device__ __forceinline__ void sweep(
 #pragma unroll 4
           for (int k = k0; k < n_real; k += k_step) {
             float t;
+            ++n_tests;
             if (mt(ro, rd, s_tri + 3 * k, bt, &t)) {
               const unsigned id = static_cast<unsigned>(c * chunk) +
                                   __float_as_uint(s_tri[3 * k + 2].y);

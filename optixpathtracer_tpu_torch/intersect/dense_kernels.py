@@ -20,11 +20,13 @@ that the render went through the kernels; `swept` and `tests` hold the
 last launch's chunks some ray of a 128-ray block tested and the
 ray-triangle tests its rays ran, per block (int32). `needed_work` counts
 the same with plain PyTorch, from what the inputs need: the kernels must
-report exactly that, and the bound is computed from it.
+report exactly that, and the bound is computed from it, each test weighed
+by where its operations can end.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -108,10 +110,10 @@ def _rays(o, d, tmin, tmax):
 # Plain PyTorch versions: the same contract and arithmetic, no culling.
 # ---------------------------------------------------------------------------
 
-def _mt_plain(o, d, tmin, limit, tri):
+def _mt_terms(o, d, tri):
     """Moller-Trumbore of rays [..., r] against triangle planes (nine
-    planes broadcastable to [..., 1, c]) in the kernel's operation order.
-    Returns (t, hit), each [..., r, c]."""
+    planes broadcastable to [..., 1, c]) in the kernel's operation order:
+    (ok, u, v, t), each [..., r, c]; ok where |det| > EPS_DET."""
     ox, oy, oz = o[..., 0:1], o[..., 1:2], o[..., 2:3]
     dx, dy, dz = d[..., 0:1], d[..., 1:2], d[..., 2:3]
     v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tri
@@ -130,9 +132,35 @@ def _mt_plain(o, d, tmin, limit, tri):
     qvz = tvx * e1y - tvy * e1x
     v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
     t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
-    hit = (ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-           & (t > tmin[..., None]) & (t < limit[..., None]))
-    return t, hit
+    return ok, u, v, t
+
+
+def _mt_hit(terms, tmin, limit):
+    """The hits among `_mt_terms`: inside the triangle, tmin < t < limit
+    (tmin, limit [..., r])."""
+    ok, u, v, t = terms
+    return (ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+            & (t > tmin[..., None]) & (t < limit[..., None]))
+
+
+def _mt_plain(o, d, tmin, limit, tri):
+    """Moller-Trumbore of rays [..., r] against triangle planes in the
+    kernel's operation order: (t, hit), each [..., r, c]."""
+    terms = _mt_terms(o, d, tri)
+    return terms[3], _mt_hit(terms, tmin, limit)
+
+
+def _exit_counts(ran, terms, dim):
+    """[..., 3] int64: of the tests `ran` marks, summed over `dim`, those
+    a test can leave once u rules the hit out (|det| too small, or u
+    outside [0, 1]), those it can leave once v does (v < 0 or u + v > 1),
+    and those that must go on to t: where the operations each needs end
+    (`NeededWork.exits`)."""
+    ok, u, v, _ = terms
+    in_u = ok & (u >= 0.0) & (u <= 1.0)
+    in_v = in_u & (v >= 0.0) & (u + v <= 1.0)
+    return torch.stack([(ran & ~in_u).sum(dim), (ran & in_u & ~in_v).sum(dim),
+                        (ran & in_v).sum(dim)], dim=-1)
 
 
 def _steps(r, t_pad):
@@ -195,21 +223,36 @@ def _slab_plain(o, inv, tmin, limit, box):
     return (t_near <= t_far) & (t_far >= tmin) & (t_near <= limit)
 
 
+class NeededWork(NamedTuple):
+    """The work a sweep of given inputs needs, per ray block (int64).
+
+    tests: ray-triangle tests; chunks: chunks some ray of the block tests;
+    exits [n_blocks, 3]: the tests by where Moller-Trumbore's operations
+    can end (`_exit_counts`): once u rules the hit out, once v does, or at
+    t; they sum to tests. below, above: how far a kernel's reported tests
+    may lie below and above tests (zero where the kernel reports exactly
+    tests)."""
+    tests: torch.Tensor
+    chunks: torch.Tensor
+    exits: torch.Tensor
+    below: torch.Tensor
+    above: torch.Tensor
+
+
 def needed_work(kind, tris, boxes, n_live, o, d, tmin, tmax):
-    """The work a dense sweep of these inputs needs, per 128-ray block
-    (int64): (ray-triangle tests, chunks some ray of the block tests), by a
-    plain count model. Chunks in id order; a live ray (tmax > tmin) whose
-    slab test passes a chunk (bounded by min(best t, tmax) for "closest",
-    tmax for "any") tests that chunk's real triangles (those before
-    n_live), and an occlusion ray only up to its first blocker and no
-    chunk after it. Padding triangles and dead rays cost nothing. The CUDA
-    kernels report exactly these counts."""
+    """The work a dense sweep of these inputs needs, per 128-ray block, by
+    a plain count model (a `NeededWork`). Chunks in id order; a live ray
+    (tmax > tmin) whose slab test passes a chunk (bounded by min(best t,
+    tmax) for "closest", tmax for "any") tests that chunk's real triangles
+    (those before n_live), and an occlusion ray only up to its first
+    blocker and no chunk after it. Padding triangles and dead rays cost
+    nothing. The CUDA kernels report exactly these tests and chunks."""
     r = o.shape[0]
     inv = _safe_inv(d)
     bt = torch.full((r,), BIG, device=o.device)
     open_ = tmax > tmin
     n_blocks = -(-r // BLOCK_RAYS)
-    tests = torch.zeros(n_blocks * BLOCK_RAYS, dtype=torch.long,
+    exits = torch.zeros((n_blocks * BLOCK_RAYS, 3), dtype=torch.long,
                         device=o.device)
     chunks = torch.zeros(n_blocks, dtype=torch.long, device=o.device)
     for c in range(-(-n_live // TRI_CHUNK)):
@@ -222,20 +265,25 @@ def needed_work(kind, tris, boxes, n_live, o, d, tmin, tmax):
         chunks += per_block.view(n_blocks, BLOCK_RAYS).any(dim=1)
         idx = torch.nonzero(can).flatten()
         step = max(1, PLAIN_PAIRS // (k1 - k0))
+        slot = torch.arange(k1 - k0, device=o.device)
         for s0 in range(0, idx.numel(), step):
             ix = idx[s0:s0 + step]
-            t, hit = _mt_plain(o[ix], d[ix], tmin[ix], limit[ix],
-                               tris[:, k0:k1])
+            terms = _mt_terms(o[ix], d[ix], tris[:, k0:k1])
+            hit = _mt_hit(terms, tmin[ix], limit[ix])
             if kind == "closest":
-                tests[ix] += k1 - k0
-                bt[ix] = torch.minimum(bt[ix],
-                                       torch.where(hit, t, BIG).amin(dim=1))
+                ran = torch.ones_like(hit)
+                bt[ix] = torch.minimum(
+                    bt[ix], torch.where(hit, terms[3], BIG).amin(dim=1))
             else:
                 blocker = hit.any(dim=1)
-                tests[ix] += torch.where(blocker, hit.int().argmax(dim=1) + 1,
-                                         k1 - k0)
+                last = torch.where(blocker, hit.int().argmax(dim=1),
+                                   k1 - k0 - 1)
+                ran = slot <= last[:, None]
                 open_[ix] &= ~blocker
-    return tests.view(n_blocks, BLOCK_RAYS).sum(dim=1), chunks
+            exits[ix] += _exit_counts(ran, terms, 1)
+    exits = exits.view(n_blocks, BLOCK_RAYS, 3).sum(dim=1)
+    zero = torch.zeros_like(chunks)
+    return NeededWork(exits.sum(dim=1), chunks, exits, zero, zero)
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,8 @@ launches; `swept` and `tests` on a sweep wrapper hold its last launch's
 chunks swept and ray-triangle tests run per block. `needed_work` counts,
 with plain PyTorch, the tests and chunks the inputs need: the closest
 kernel reports exactly that, the occlusion kernel within a stated slack,
-and the kernels' bound is computed from it.
+and the kernels' bound is computed from it, each test weighed by where
+its operations can end.
 """
 from __future__ import annotations
 
@@ -35,7 +36,8 @@ import ctypes
 import torch
 
 from .. import _build
-from .dense_kernels import BIG, _mt_plain, _rays, _safe_inv, _slab_plain
+from .dense_kernels import (BIG, NeededWork, _exit_counts, _mt_hit,
+                            _mt_terms, _rays, _safe_inv, _slab_plain)
 from .types import Hit
 
 LANES = 128          # candidate rows are padded to a multiple of this
@@ -181,11 +183,18 @@ def _sweep_steps(cand, count, block_rays, chunk):
             yield bs, cand[bs, j].long()
 
 
+def _sweep_terms(walk_tris, c, o, d):
+    """Moller-Trumbore's terms (ok, u, v, t) of the rays of blocks [s, B]
+    against chunks c [s], each [s, B, chunk]."""
+    tri = walk_tris[c, :9]  # [s, 9, chunk]
+    return _mt_terms(o, d, [p[:, None, :] for p in tri.unbind(1)])
+
+
 def _sweep_mt(walk_tris, c, o, d, tmin, tmax):
     """Moller-Trumbore of the rays of blocks [s, B] against chunks c [s]:
     (t, hit), each [s, B, chunk]."""
-    tri = walk_tris[c, :9]  # [s, 9, chunk]
-    return _mt_plain(o, d, tmin, tmax, [p[:, None, :] for p in tri.unbind(1)])
+    terms = _sweep_terms(walk_tris, c, o, d)
+    return terms[3], _mt_hit(terms, tmin, tmax)
 
 
 def closest_plain(walk_tris, cand, count, o, d, tmin, tmax,
@@ -227,25 +236,24 @@ def _real(walk_tris):
 
 
 def needed_work(kind, walk_tris, boxes, cand, tnear, count, o, d, tmin, tmax,
-                block_rays=BLOCK_RAYS, slack=False):
-    """The work a walk sweep of these inputs needs, per ray block (int64):
-    (ray-triangle tests, chunks some ray of the block tests), by a plain
-    count model. A block's candidates go in list order. A live ray (tmax >
-    tmin) tests a chunk only when its own slab test passes that chunk,
-    bounded by min(best t so far, tmax) for "closest" and by tmax for an
-    occlusion ray not yet blocked; it then tests the chunk's triangles
-    (padding, `_real`, costs nothing), an occlusion ray in slot order up
-    to its first blocker and no chunk after it. Dead rays cost nothing.
+                block_rays=BLOCK_RAYS):
+    """The work a walk sweep of these inputs needs, per ray block, by a
+    plain count model (a `NeededWork`). A block's candidates go in list
+    order. A live ray (tmax > tmin) tests a chunk only when its own slab
+    test passes that chunk, bounded by min(best t so far, tmax) for
+    "closest" and by tmax for an occlusion ray not yet blocked; it then
+    tests the chunk's triangles (padding, `_real`, costs nothing), an
+    occlusion ray in slot order up to its first blocker and no chunk after
+    it. Dead rays cost nothing.
 
     The kernels' early exit (tnear of the next candidate above the block's
     max of min(best t, tmax); every ray blocked) is not modelled: for rays
     with tmin >= 0 it only skips chunks every ray's own test fails, which
-    cost nothing here. The closest kernel reports exactly these counts.
-    The occlusion kernel splits a chunk's triangles across warps, so a
-    ray blocked in a chunk may run from 1 to all of its triangles there;
-    with slack=True the model also returns, per block, how far below and
-    above its tests the occlusion kernel's may lie: (tests, chunks, below,
-    above)."""
+    cost nothing here. The closest kernel reports exactly these tests and
+    chunks. The occlusion kernel splits a chunk's triangles across warps,
+    so a ray blocked in a chunk may run from 1 to all of its triangles
+    there: `below` and `above` say how far under and over `tests` its
+    count may lie (zero for "closest")."""
     if kind not in ("closest", "any"):
         raise ValueError(f"kind {kind!r} is not 'closest' or 'any'")
     chunk = walk_tris.shape[2]
@@ -254,11 +262,12 @@ def needed_work(kind, walk_tris, boxes, cand, tnear, count, o, d, tmin, tmax,
     nb = o.shape[0]
     real = _real(walk_tris)
     rank = real.cumsum(dim=1)  # real triangles up to each slot, inclusive
+    slot = torch.arange(chunk, device=o.device)
     best_t = torch.full(tmin.shape, BIG, device=o.device)
     open_ = tmax > tmin
-    tests, chunks, below, above = (torch.zeros(nb, dtype=torch.long,
-                                               device=o.device)
-                                   for _ in range(4))
+    exits = torch.zeros((nb, 3), dtype=torch.long, device=o.device)
+    chunks, below, above = (torch.zeros(nb, dtype=torch.long,
+                                        device=o.device) for _ in range(3))
     for bs, c in _sweep_steps(cand, count, block_rays, chunk):
         limit = (torch.minimum(best_t[bs], tmax[bs]) if kind == "closest"
                  else tmax[bs])
@@ -266,21 +275,23 @@ def needed_work(kind, walk_tris, boxes, cand, tnear, count, o, d, tmin, tmax,
         can = open_[bs] & _slab_plain(o[bs], inv[bs], tmin[bs], limit,
                                       boxes[:, c].T[:, None, :])
         chunks[bs] += can.any(dim=1)
-        t, hit = _sweep_mt(walk_tris, c, o[bs], d[bs], tmin[bs], tmax[bs])
-        hit &= can[..., None] & real[c][:, None, :]
-        n_real = rank[c, -1][:, None]  # [s, 1]
+        terms = _sweep_terms(walk_tris, c, o[bs], d[bs])
+        ran = can[..., None] & real[c][:, None, :]  # [s, B, chunk]
+        hit = ran & _mt_hit(terms, tmin[bs], tmax[bs])
         if kind == "closest":
-            tests[bs] += (can * n_real).sum(dim=1)
             best_t[bs] = torch.minimum(
-                best_t[bs], torch.where(hit, t, BIG).amin(dim=2))
+                best_t[bs], torch.where(hit, terms[3], BIG).amin(dim=2))
         else:
             blocker = hit.any(dim=2)
-            first = rank[c].gather(1, hit.int().argmax(dim=2))  # [s, B]
-            tests[bs] += torch.where(blocker, first, can * n_real).sum(dim=1)
+            first_slot = hit.int().argmax(dim=2)  # [s, B]
+            ran &= slot <= torch.where(blocker, first_slot, chunk)[..., None]
+            first = rank[c].gather(1, first_slot)  # real tests to the blocker
+            n_real = rank[c, -1][:, None]  # [s, 1]
             below[bs] += torch.where(blocker, first - 1, 0).sum(dim=1)
             above[bs] += torch.where(blocker, n_real - first, 0).sum(dim=1)
             open_[bs] &= ~blocker
-    return (tests, chunks, below, above) if slack else (tests, chunks)
+        exits[bs] += _exit_counts(ran, terms, (1, 2))
+    return NeededWork(exits.sum(dim=1), chunks, exits, below, above)
 
 
 # ---------------------------------------------------------------------------

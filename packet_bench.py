@@ -34,9 +34,11 @@ first query of each of hall's cutout chains (closest hits on the
 40-triangle cutout sub-scene: the radiance and the shadow chains of
 bounces 0 and 1). Each version must return the current source's t, ids
 or blocked flags bit for bit; it is timed as above and read against one
-bound for all versions, chip_smoke's needed-work bound (the tests
-`dense_kernels.needed_work` counts for these inputs x 54). Printed per
-wavefront and version: ms, the tests the version reports, and the reach.
+bound for all versions, chip_smoke's needed-work bound (the FP32 operations of the
+tests `dense_kernels.needed_work` counts for these inputs, each up to
+where it can end: 28 once u rules the hit out, 46 once v does, else 54).
+Printed per wavefront and version: ms, the tests the version reports,
+and the reach.
 
 With --walk, each PATH is a version of csrc/walk_intersect.cu with the
 same C entry points (`walk_closest`, `walk_any`), run on every wavefront
@@ -47,9 +49,9 @@ the coherence sort and the current source's candidate kernel (block 256).
 Each version must return the current source's t, ids or blocked flags bit
 for bit; it is timed as above and read against one bound for all
 versions, chip_smoke's needed-work bound (the tests
-`walk_kernels.needed_work` counts for these inputs x 54). Printed per
-wavefront and version: ms, the chunks swept and tests the version
-reports against the model's, and the reach.
+`walk_kernels.needed_work` counts for these inputs, weighed as with
+--dense). Printed per wavefront and version: ms, the chunks swept and
+tests the version reports against the model's, and the reach.
 """
 import ctypes
 import hashlib
@@ -248,12 +250,14 @@ def dense_rows(card, launch, dev):
         args = (kind, tris, boxes, n_live, *rays)
         counts, ms = time_in_turns(launch, f"{scene_name} {kind} {label}",
                                    *args)
-        bound_ms, bound_by, need = cs.dense_bound(card, kind, tris, boxes,
+        bound_ms, bound_by, work = cs.dense_bound(card, kind, tris, boxes,
                                                   n_live, rays)
+        need = int(work.tests.sum())
         live = int((rays[3] > rays[2]).sum())
         cs.log(f"{scene_name} dense_{kind} {label} ({rays[0].shape[0]} rays,"
-               f" {live} live; {need:.4g} needed tests, bound "
-               f"{bound_ms:.4f} ms, {bound_by}):")
+               f" {live} live; {need:.4g} needed tests, ending at "
+               f"{cs.exit_shares(work)}, bound {bound_ms:.4f} ms, "
+               f"{bound_by}):")
         for name in launch:
             mean = sum(ms[name]) / len(ms[name])
             tests = counts[name][1]
@@ -293,14 +297,15 @@ def walk_rows(card, launch, dev):
             args = (kind, scene.walk_tris, boxes, cand, tnear, count, *srays)
             counts, ms = time_in_turns(launch, f"{scene_name} {kind} {label}",
                                        *args)
-            bound_ms, bound_by, need, chunks, _, _ = cs.walk_bound(
+            bound_ms, bound_by, work = cs.walk_bound(
                 card, kind, scene, boxes, cand, tnear, count, srays, 256)
-            need, chunks = int(need.sum()), int(chunks.sum())
+            need, chunks = int(work.tests.sum()), int(work.chunks.sum())
             live = int((srays[3] > srays[2]).sum())
             cs.log(f"{scene_name} walk_{kind} {label} ({srays[0].shape[0]} "
                    f"rays, {live} live, {float(count.float().mean()):.1f} "
                    f"candidates a block; {chunks} chunks and {need:.4g} "
-                   f"tests needed, bound {bound_ms:.4f} ms, {bound_by}):")
+                   f"tests needed, ending at {cs.exit_shares(work)}, bound "
+                   f"{bound_ms:.4f} ms, {bound_by}):")
             for name in launch:
                 mean = sum(ms[name]) / len(ms[name])
                 swept, tests = counts[name]

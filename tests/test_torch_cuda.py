@@ -102,7 +102,7 @@ def _check_dense_kernels(tris, boxes, n_live, rays):
     live_chunks = -(-n_live // dk.TRI_CHUNK)
     for kind, k in (("closest", dk.closest_kernel), ("any", dk.any_kernel)):
         assert k.swept.shape == k.tests.shape == (n_blocks,)
-        need, chunks = dk.needed_work(kind, tris, boxes, n_live, *rays)
+        need, chunks = dk.needed_work(kind, tris, boxes, n_live, *rays)[:2]
         assert torch.equal(k.tests.long(), need), kind
         assert torch.equal(k.swept.long(), chunks), kind
         assert (need <= live * n_live).all()
@@ -307,16 +307,15 @@ def _check_walk_sweeps(walk_tris, boxes, rays, block_rays):
     swept, tests = wk.closest_kernel.swept, wk.closest_kernel.tests
     assert swept.shape == tests.shape == count.shape
     need, chunks = wk.needed_work("closest", walk_tris, boxes, cand, tnear,
-                                  count, *rays, block_rays)
+                                  count, *rays, block_rays)[:2]
     assert torch.equal(tests.long(), need) and tests.sum() > 0
     assert torch.equal(swept.long(), chunks) and (swept <= count).all()
     kb = wk.any_kernel(walk_tris, boxes, cand, count, *rays, block_rays)
     pb = wk.any_plain(walk_tris, cand, count, *rays, block_rays)
     assert torch.equal(kb, pb)
     assert not kb[rays[3] <= rays[2]].any()  # dead lanes are never blocked
-    need, chunks, below, above = wk.needed_work(
-        "any", walk_tris, boxes, cand, tnear, count, *rays, block_rays,
-        slack=True)
+    need, chunks, _, below, above = wk.needed_work(
+        "any", walk_tris, boxes, cand, tnear, count, *rays, block_rays)
     tests = wk.any_kernel.tests.long()
     assert torch.equal(wk.any_kernel.swept.long(), chunks)
     assert (tests >= need - below).all() and (tests <= need + above).all()

@@ -313,7 +313,9 @@ def test_needed_work_matches_a_hand_count():
        chunk 0 (no hit ahead) and chunk 1's two real triangles (130); any
        tests 128, then blocks on the first of chunk 1 (129).
     4: down the axis from the origin: both boxes behind it: none.
-    Chunks tested: ray 0 one, ray 3 two (both kinds)."""
+    Chunks tested: ray 0 one, ray 3 two (both kinds). Where the tests can
+    end: the small triangles lie 50 off the axis, so u rules each out;
+    the large ones (ids 0 and 128) go on to t."""
     scene = _hand_count_scene()
     tris, boxes, n_live = dense_kernels.dense_arrays(scene)
     assert (n_live, tris.shape[1]) == (130, 256)
@@ -327,13 +329,20 @@ def test_needed_work_matches_a_hand_count():
     tmax[first] = torch.tensor([100.0, 4.0, -1.0, 100.0, 100.0])
     o[first[3], 2] = 6.0
     d[first[4], 2] = -1.0
-    closest, closest_chunks = dense_kernels.needed_work(
-        "closest", tris, boxes, n_live, o, d, tmin, tmax)
-    any_, any_chunks = dense_kernels.needed_work("any", tris, boxes, n_live,
-                                                 o, d, tmin, tmax)
-    assert closest.tolist() == [128, 0, 0, 130, 0]
-    assert any_.tolist() == [1, 0, 0, 129, 0]
-    assert closest_chunks.tolist() == any_chunks.tolist() == [1, 0, 0, 2, 0]
+    closest = dense_kernels.needed_work("closest", tris, boxes, n_live, o, d,
+                                        tmin, tmax)
+    any_ = dense_kernels.needed_work("any", tris, boxes, n_live, o, d, tmin,
+                                     tmax)
+    assert closest.tests.tolist() == [128, 0, 0, 130, 0]
+    assert any_.tests.tolist() == [1, 0, 0, 129, 0]
+    assert (closest.chunks.tolist() == any_.chunks.tolist()
+            == [1, 0, 0, 2, 0])
+    none = [0, 0, 0]
+    assert closest.exits.tolist() == [[127, 0, 1], none, none, [128, 0, 2],
+                                      none]
+    assert any_.exits.tolist() == [[0, 0, 1], none, none, [127, 0, 2], none]
+    for work in (closest, any_):
+        assert not work.below.any() and not work.above.any()
     t, ids = dense_kernels.closest_plain(tris, o, d, tmin, tmax)
     assert ids[first].tolist() == [0, -1, -1, 128, -1]
     blocked = dense_kernels.any_plain(tris, o, d, tmin, tmax)
@@ -349,9 +358,11 @@ def test_needed_work_counts_no_padding_or_dead_ray(dense_scenes):
         tris, boxes, n_live = dense_kernels.dense_arrays(scene)
         o, d, tmin, tmax = rays
         live = (tmax > tmin).view(-1, 128).sum(dim=1)
-        closest, chunks = dense_kernels.needed_work("closest", tris, boxes,
-                                                    n_live, *rays)
-        any_ = dense_kernels.needed_work("any", tris, boxes, n_live, *rays)[0]
+        closest, chunks, exits = dense_kernels.needed_work(
+            "closest", tris, boxes, n_live, *rays)[:3]
+        any_ = dense_kernels.needed_work("any", tris, boxes, n_live,
+                                         *rays).tests
+        assert torch.equal(exits.sum(dim=1), closest) and (exits >= 0).all()
         assert (closest <= live * n_live).all() and closest.sum() > 0, name
         assert (chunks <= -(-n_live // 128)).all() and chunks.sum() > 0
         assert (any_ <= closest).all(), name

@@ -400,7 +400,9 @@ def _np_slab(o, inv, tmin, limit, box):
 
 def _np_mt(o, d, tmin, tmax, tri):
     """Moller-Trumbore of one ray against the [9, chunk] triangle rows of
-    one chunk, in the kernels' operation order, in float32: (t, hit)."""
+    one chunk, in the kernels' operation order, in float32: (t, hit,
+    stage), stage 0 where u rules the hit out (or |det| is too small), 1
+    where v then does, 2 where the test goes on to t."""
     v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tri
     pvx = d[1] * e2z - d[2] * e2y
     pvy = d[2] * e2x - d[0] * e2z
@@ -416,7 +418,9 @@ def _np_mt(o, d, tmin, tmax, tri):
     v = (d[0] * qvx + d[1] * qvy + d[2] * qvz) * inv_det
     t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
     hit = ok & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > tmin) & (t < tmax)
-    return t.astype(np.float32), hit
+    in_u = ok & (u >= 0) & (u <= 1)
+    stage = in_u.astype(np.int64) + (in_u & (v >= 0) & (u + v <= 1))
+    return t.astype(np.float32), hit, stage
 
 
 def _walk_query(scene, o, d, tmax, block_rays=256):
@@ -433,7 +437,8 @@ def _walk_query(scene, o, d, tmax, block_rays=256):
 
 
 def _literal_counts(kind, scene, query, block_rays=256, old=False):
-    """Per block (tests, chunks), by a literal loop over each block's
+    """Per block (tests, chunks, exits [n_blocks, 3]: the tests by where
+    they can end, `_np_mt`'s stage), by a literal loop over each block's
     candidates in list order and each of its rays, with the sweeps' early
     exits. old=True counts as a one-thread-per-ray sweep's counter charges:
     a chunk some ray passes runs on every warp with a passing lane,
@@ -448,6 +453,7 @@ def _literal_counts(kind, scene, query, block_rays=256, old=False):
     inv = _np_inv(d)
     nb = cand.shape[0]
     tests, chunks = np.zeros(nb, np.int64), np.zeros(nb, np.int64)
+    exits = np.zeros((nb, 3), np.int64)
     for b in range(nb):
         idx = range(b * block_rays, min((b + 1) * block_rays, o.shape[0]))
         best = {i: np.float32(3.4e38) for i in idx}
@@ -486,8 +492,10 @@ def _literal_counts(kind, scene, query, block_rays=256, old=False):
                 if kind == "closest":
                     tests[b] += pad_lanes * walk.shape[2]
             for i in runs:
-                t, hit = _np_mt(o[i], d[i], tmin[i], tmax[i], walk[c, :9])
+                t, hit, stage = _np_mt(o[i], d[i], tmin[i], tmax[i],
+                                       walk[c, :9])
                 hit_real = hit & real[c]
+                ran = real[c].copy()
                 if kind == "closest":
                     tests[b] += walk.shape[2] if old else int(real[c].sum())
                     if hit_real.any():
@@ -499,10 +507,12 @@ def _literal_counts(kind, scene, query, block_rays=256, old=False):
                         tests[b] += (first + 1 if old
                                      else int(real[c][:first + 1].sum()))
                         blocked[i] = True
+                        ran[first + 1:] = False
                     else:
                         tests[b] += (walk.shape[2] if old
                                      else int(real[c].sum()))
-    return tests, chunks
+                exits[b] += np.bincount(stage[ran], minlength=3)
+    return tests, chunks, exits
 
 
 _WORK_TMAX = {"mixed": _mixed_tmax, "1.0": lambda n: np.where(
@@ -518,22 +528,24 @@ def test_needed_work_matches_a_literal_loop(walk_case, kind, tmax):
     _, scene, o, d = walk_case
     query = _walk_query(scene, o, d, _WORK_TMAX[tmax](o.shape[0]))
     rays, boxes, cand, tnear, count = query
-    tests, chunks = walk_kernels.needed_work(
+    tests, chunks, exits, below, above = walk_kernels.needed_work(
         kind, scene.walk_tris, boxes, cand, tnear, count, *rays)
-    want_tests, want_chunks = _literal_counts(kind, scene, query)
+    want_tests, want_chunks, want_exits = _literal_counts(kind, scene, query)
     np.testing.assert_array_equal(tests.numpy(), want_tests)
     np.testing.assert_array_equal(chunks.numpy(), want_chunks)
+    np.testing.assert_array_equal(exits.numpy(), want_exits)
     assert tests.dtype == torch.int64 and tests.sum() > 0
     assert (chunks <= count).all()
-    old_tests, old_chunks = _literal_counts(kind, scene, query, old=True)
+    # every way a test can end occurs in this scene
+    assert (exits.sum(dim=0) > 0).all()
+    old_tests, old_chunks, _ = _literal_counts(kind, scene, query, old=True)
     assert (tests.numpy() <= old_tests).all()
     np.testing.assert_array_equal(chunks.numpy(), old_chunks)
+    assert (below >= 0).all() and (above >= 0).all()
     if kind == "any":
-        _, _, below, above = walk_kernels.needed_work(
-            kind, scene.walk_tris, boxes, cand, tnear, count, *rays,
-            slack=True)
-        assert (below >= 0).all() and (above >= 0).all()
         assert (below <= tests).all() and (above + below).sum() > 0
+    else:
+        assert not below.any() and not above.any()
 
 
 def _merge_key(t, tri_id):
@@ -582,8 +594,8 @@ def test_coincident_triangles_merge_to_the_lowest_id():
         b = i // walk_kernels.BLOCK_RAYS
         keys = []
         for c in cand[b, :int(count[b])].tolist():
-            th, hit = _np_mt(o_s[i], d_s[i], tmin_s[i], tmax_s[i],
-                             walk[c, :9])
+            th, hit, _ = _np_mt(o_s[i], d_s[i], tmin_s[i], tmax_s[i],
+                                walk[c, :9])
             for s0 in range(0, chunk, chunk // 8):
                 sl = np.nonzero(hit[s0:s0 + chunk // 8])[0]
                 if sl.size:
