@@ -73,6 +73,27 @@ runs the dense closest kernel over the 40-triangle cutout sub-scene).
    rays, hits, surfaces, NEE, BSDF samples, throughput) and the first
    stage that differs is printed, for Cornell, hall_small and `layered`
    (the last printed, not gated).
+4. Options phase: the `trace_paths` options at 1920x1080 through
+   `render_sample` (method "auto"). hall, 1 spp, 2 bounces, with
+   material_sort 0, 4, 8 and 16: wall ms, device-busy ms and launches of
+   the frame, and per bounce the lanes of each material bucket and the
+   segments whose gate is on, per lobe. sort_rays True and "morton", and
+   compact_shading 4, on `diffuse` (3 bounces) and hall: wall and device
+   ms, each image held to the unsorted frame (bit for bit expected).
+   Correctness: hall at 256x256, 2 spp, material_sort 8, through the
+   kernels against the plain versions, and hall_small at 48x48,
+   material_sort 4, GPU against CPU, by the engine-golden criterion.
+5. Backward phase, in bench.py's fwd_bwd shape: `layered` at 256x256, 2
+   bounces, frames 0-3, `diff.param_gradients` over the four material
+   fields of the reference's material_grad_step (mean loss), once through
+   the kernels and once through the plain versions: gradients bit for
+   bit. fwd+bwd and forward-only Mrays/s (pixels x frames x bounces x 2 /
+   seconds), peak device memory and bytes a lane. Then hall_small at
+   48x48 through "auto" (walk, dense, cutout chains) and "packet":
+   gradients finite, kernels equal plain.
+Every phase that drives a path sets the launch counters to 0 just before
+and reads them just after, and fails if a kernel of that path never
+launched.
 
 Any failed check raises, so the process exits non-zero. The last lines of
 standard output are JSON objects describing the engine tables and the
@@ -81,6 +102,7 @@ kernels, the card (nvidia-smi name and power limit) and the result line
 without a CUDA device or without the rest of the repository.
 """
 import contextlib
+import dataclasses
 import functools
 import json
 import re
@@ -950,19 +972,18 @@ def path_phase(name, scene, camera, spp, bounces, dev, stats, card):
     stats[(name, "render")] = {"seconds": seconds, "mrays_per_s": mrays}
 
 
-def profile_frame(name, scene, camera, bounces, dev):
-    """torch.profiler over one 1-spp 1080p frame: wall ms, device busy ms,
-    the walk and dense kernels' ms and the number of kernel launches."""
+def device_profile(fn):
+    """torch.profiler over one call of fn: {"wall": ms, "device": busy ms,
+    "ours": {kernel: ms}, "launches": kernel launches}, or None where the
+    profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from optixpathtracer_tpu_torch.integrate import path
-    path.render(scene, camera, WIDTH, HEIGHT, spp=1, max_bounces=bounces)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        path.render(scene, camera, WIDTH, HEIGHT, spp=1, max_bounces=bounces)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     device_us, ours_us, launches = 0.0, {}, 0
@@ -974,20 +995,30 @@ def profile_frame(name, scene, camera, bounces, dev):
             continue
         device_us += dev_us
         launches += ev.count
-        for tag in ("walk_candidates", "walk_closest", "walk_any",
-                    "dense_closest", "dense_any", "packet_closest",
-                    "packet_any"):
+        for tag in KERNEL_SOURCES:
             if tag in ev.key:
                 ours_us[tag] = ours_us.get(tag, 0.0) + dev_us
-    ours = {k: round(v / 1e3, 3) for k, v in ours_us.items()}
     if device_us == 0:
+        return None
+    return {"wall": wall, "device": device_us / 1e3, "launches": launches,
+            "ours": {k: round(v / 1e3, 3) for k, v in ours_us.items()}}
+
+
+def profile_frame(name, scene, camera, bounces, dev):
+    """torch.profiler over one 1-spp 1080p frame: wall ms, device busy ms,
+    the walk and dense kernels' ms and the number of kernel launches."""
+    from optixpathtracer_tpu_torch.integrate import path
+    path.render(scene, camera, WIDTH, HEIGHT, spp=1, max_bounces=bounces)
+    p = device_profile(lambda: path.render(scene, camera, WIDTH, HEIGHT,
+                                           spp=1, max_bounces=bounces))
+    if p is None:
         log(f"  {name} profile: the profiler saw no device time")
         return
-    log(f"  {name} profile, one 1-spp frame: wall {wall:.1f} ms, device "
-        f"busy {device_us / 1e3:.1f} ms ({device_us / 1e3 / wall:.0%}), "
-        f"intersection kernels {ours} ms, other "
-        f"{(device_us - sum(ours_us.values())) / 1e3:.1f} ms, "
-        f"{launches} kernel launches")
+    log(f"  {name} profile, one 1-spp frame: wall {p['wall']:.1f} ms, device "
+        f"busy {p['device']:.1f} ms ({p['device'] / p['wall']:.0%}), "
+        f"intersection kernels {p['ours']} ms, other "
+        f"{p['device'] - sum(p['ours'].values()):.1f} ms, "
+        f"{p['launches']} kernel launches")
 
 
 def render_close(img, want):
@@ -1068,7 +1099,7 @@ def recorded_stages(path, records):
 
     def shade(*a, **k):
         out = saved[6](*a, **k)
-        rec("throughput", beta=out[3], radiance=out[2])
+        rec("throughput", beta=out[2], radiance=out[1])
         return out
 
     (path.generate_rays, path.intersect_closest, path.make_surface,
@@ -1173,6 +1204,278 @@ def gpu_vs_cpu_phase(scenes, dev):
     stage_trace("layered", scene, camera, 48, 2, "walk")
 
 
+# ---------------------------------------------------------------------------
+# Options phase (the trace_paths options) and backward phase
+# ---------------------------------------------------------------------------
+
+MATERIAL_SORTS = (0, 4, 8, 16)
+SORTS = ({"sort_rays": True}, {"sort_rays": "morton"},
+         {"compact_shading": 4})
+LOBE_NAMES = ("diffuse", "conductor", "dielectric", "glossy_diffuse")
+GRAD_FIELDS = ("mat_albedo", "mat_metallic", "mat_roughness", "mat_ior")
+GRAD_SIZE, GRAD_FRAMES, GRAD_BOUNCES = 256, (0, 1, 2, 3), 2
+
+
+@contextlib.contextmanager
+def counted(what, kernels):
+    """Zero every launch counter just before the block and read them just
+    after; fail if one of `kernels` never launched. Yields the dict the
+    counts are written into."""
+    import torch
+    wrappers = kernel_wrappers()
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    counts = {}
+    yield counts
+    torch.cuda.synchronize()
+    counts.update({k: w.launches for k, w in wrappers.items()})
+    missing = [k for k in kernels if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{what}: {missing} never launched")
+
+
+@contextlib.contextmanager
+def material_sort_records(path):
+    """Record, per bounce of a material-sorted frame, the lanes of each
+    sort bucket (a device tensor, read after the frame) and the gates of
+    every segment."""
+    import torch
+    saved = (path._perm_from_key, path._shade_mat_segment)
+    bounces = []
+
+    def perm_from_key(key, n_buckets):
+        if n_buckets == path.N_MAT_BUCKETS:
+            bounces.append({"lanes": torch.bincount(key, minlength=n_buckets),
+                            "gates": []})
+        return saved[0](key, n_buckets)
+
+    def segment(*a, **k):
+        bounces[-1]["gates"].append(a[7])
+        return saved[1](*a, **k)
+
+    path._perm_from_key, path._shade_mat_segment = perm_from_key, segment
+    try:
+        yield bounces
+    finally:
+        path._perm_from_key, path._shade_mat_segment = saved
+
+
+def frame_runs(what, scene, camera, bounces, kernels, warm=True,
+               **options):
+    """One 1-spp 1080p frame through render_sample ("auto"): a warm-up
+    (unless warm is false) with the material sort's records, a timed run
+    with the launch counters, a profiled run. Returns (image, {"wall_ms",
+    "launches", "profile"}, the warm-up's records)."""
+    import torch
+    from optixpathtracer_tpu_torch.integrate import path
+    params = camera.raygen_params(WIDTH, HEIGHT, scene.device)
+    flags = scene_flags(scene)
+
+    def frame():
+        return path.render_sample(scene, *params, WIDTH, HEIGHT, 0,
+                                  bounces, "auto", **flags, **options)
+
+    with material_sort_records(path) as records:
+        if warm:
+            frame()
+    with counted(what, kernels) as launches:
+        t0 = time.perf_counter()
+        img = frame()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return img, {"wall_ms": wall, "launches": launches,
+                 "profile": device_profile(frame)}, records
+
+
+def run_line(what, run):
+    p = run["profile"] or {}
+    busy = p.get("device", float("nan"))
+    log(f"  {what}: wall {run['wall_ms']:.1f} ms, device busy "
+        f"{busy:.1f} ms of a profiled {p.get('wall', float('nan')):.1f} ms "
+        f"(idle {1 - busy / p.get('wall', float('nan')):.0%}), "
+        f"{p.get('launches')} kernel launches; ours "
+        f"{ {k: v for k, v in run['launches'].items() if v} }")
+
+
+def options_phase(scenes, dev, stats):
+    import torch
+    from optixpathtracer_tpu_torch.integrate import path
+    scene, camera, _, _ = scenes["hall"]
+    out = {"material_sort": {}, "sorts": {}}
+    unsorted = {}
+    for n in MATERIAL_SORTS:
+        img, run, records = frame_runs(f"hall material_sort={n}", scene,
+                                       camera, 2, CELL_KERNELS["hall"],
+                                       material_sort=n)
+        if n == 0:
+            unsorted["hall"] = img
+        if not torch.isfinite(img).all() or img.mean() <= 0:
+            raise AssertionError(f"hall material_sort={n}: bad image")
+        run_line(f"hall 1 spp material_sort={n}", run)
+        per_bounce = []
+        for b, rec in enumerate(records):
+            lanes = dict(zip(LOBE_NAMES + ("metallic_mix", "dead"),
+                             rec["lanes"].tolist()))
+            gates = {LOBE_NAMES[lobe]: sum(bool(g[lobe]) for g in
+                                           rec["gates"])
+                     for lobe in rec["gates"][0]}
+            per_bounce.append({"lanes": lanes, "gates_on": gates})
+            log(f"    bounce {b}: lanes per bucket {lanes}; of {n} "
+                f"segments, gate on {gates}")
+        out["material_sort"][n] = dict(run, per_bounce=per_bounce,
+                                       mean=float(img.mean()))
+    for name, bounces in (("diffuse", 3), ("hall", 2)):
+        scene, camera, _, _ = scenes[name]
+        if name not in unsorted:
+            unsorted[name], run, _ = frame_runs(f"{name} unsorted", scene,
+                                                camera, bounces,
+                                                CELL_KERNELS[name])
+            run_line(f"{name} 1 spp unsorted", run)
+            out["sorts"][f"{name} unsorted"] = run
+        for opt in SORTS:
+            what = f"{name} {opt}"
+            # hall is warm from the material-sort frames
+            img, run, _ = frame_runs(what, scene, camera, bounces,
+                                     CELL_KERNELS[name], warm=name != "hall",
+                                     **opt)
+            diff = float((img - unsorted[name]).abs().max())
+            same = bool(torch.equal(img, unsorted[name]))
+            run_line(f"{name} 1 spp {opt}", run)
+            log("    image bit for bit the unsorted one" if same else
+                f"    image differs from the unsorted one: max |diff| "
+                f"{diff:.3g}")
+            if not same:
+                assert_render_match(img.cpu().numpy(),
+                                    unsorted[name].cpu().numpy(),
+                                    f"{what} vs unsorted")
+            out["sorts"][what] = dict(run, bit_identical=same,
+                                      max_abs_diff=diff)
+    # correctness: kernels against plain versions, GPU against CPU
+    scene, camera, _, _ = scenes["hall"]
+    pos, iv, ip = camera.raygen_params(SMALL, SMALL, dev)
+    zeros = torch.zeros((SMALL, SMALL, 3), device=dev)
+    flags = scene_flags(scene)
+    with counted("hall material_sort=8 256x256", CELL_KERNELS["hall"]):
+        small = path.render_chunk(scene, pos, iv, ip, SMALL, SMALL, zeros, 0,
+                                  2, 2, "auto", material_sort=8, **flags)
+    with plain_kernels():
+        plain = path.render_chunk(scene, pos, iv, ip, SMALL, SMALL, zeros, 0,
+                                  2, 2, "auto", material_sort=8, **flags)
+    assert_render_match(small.cpu().numpy(), plain.cpu().numpy(),
+                        f"hall {SMALL}x{SMALL} 2 spp material_sort=8 kernels "
+                        f"vs plain")
+    from optixpathtracer_tpu_torch.scene import flatten_model
+    from optixpathtracer_tpu_torch.scene.procedural import PRESETS
+    model, camera, lights = PRESETS["hall_small"]()
+    scene = flatten_model(model, lights, device=dev)
+    imgs = []
+    for s in (scene, scene.to("cpu")):
+        params = camera.raygen_params(48, 48, s.device)
+        acc = torch.zeros((48, 48, 3), device=s.device)
+        imgs.append(path.render_chunk(
+            s, *params, 48, 48, acc, 0, 2, 2, "packet", material_sort=4,
+            **scene_flags(s)).cpu().numpy())
+    assert_render_match(*imgs, "hall_small 48x48 2 spp material_sort=4 GPU "
+                        "vs CPU (packet)")
+    stats["options"] = out
+
+
+def grads_of(loss_fn, params):
+    """{field: gradient} of loss_fn(params) for fresh leaves (zeros for a
+    field the loss does not depend on, as param_gradients gives)."""
+    import torch
+    leaves = {f: p.detach().clone().requires_grad_(True)
+              for f, p in params.items()}
+    grads = torch.autograd.grad(loss_fn(leaves), list(leaves.values()),
+                                allow_unused=True)
+    return {f: torch.zeros_like(p) if g is None else g
+            for (f, p), g in zip(leaves.items(), grads)}
+
+
+def assert_grads_equal(got, want, what):
+    import torch
+    for f in GRAD_FIELDS:
+        if not torch.isfinite(got[f]).all():
+            raise AssertionError(f"{what}: {f} gradient not finite")
+        if not torch.equal(got[f], want[f]):
+            n = int((got[f] != want[f]).sum())
+            raise AssertionError(f"{what}: {f} gradients differ in {n} "
+                                 f"entries")
+    log(f"  {what}: gradients bit for bit, max |g| "
+        f"{ {f: float(got[f].abs().max()) for f in GRAD_FIELDS} }")
+
+
+def backward_phase(scenes, dev, card, stats):
+    import torch
+    from optixpathtracer_tpu_torch.diff import param_gradients, render_loss_fn
+    from optixpathtracer_tpu_torch.integrate import path
+    from optixpathtracer_tpu_torch.scene import flatten_model
+    from optixpathtracer_tpu_torch.scene.procedural import PRESETS
+    scene, camera, _, _ = scenes["layered"]
+    size, frames, bounces = GRAD_SIZE, list(GRAD_FRAMES), GRAD_BOUNCES
+    cam = camera.raygen_params(size, size, dev)
+    kw = dict(fields=GRAD_FIELDS, max_bounces=bounces, intersect_method="auto")
+    param_gradients(scene, cam, size, size, frames[:1], **kw)  # warm-up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with counted("layered backward", WALK) as launches:
+        t0 = time.perf_counter()
+        got = param_gradients(scene, cam, size, size, frames, **kw)
+        torch.cuda.synchronize()
+        fwd_bwd_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    with plain_kernels():
+        want = param_gradients(scene, cam, size, size, frames, **kw)
+    assert_grads_equal(got, want, f"layered {size}x{size} frames {frames} "
+                       f"kernels vs plain")
+    loss_fn = render_loss_fn(scene, cam, size, size, frames,
+                             max_bounces=bounces, intersect_method="auto")
+    params = {f: getattr(scene, f) for f in GRAD_FIELDS}
+    with torch.no_grad():
+        loss_fn(params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss_fn(params)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+    rays = size * size * len(frames) * bounces * 2
+    lanes = size * size * len(frames)
+    out = {"fwd_bwd_s": fwd_bwd_s, "fwd_s": fwd_s,
+           "fwd_bwd_mrays_per_s": rays / fwd_bwd_s / 1e6,
+           "fwd_mrays_per_s": rays / fwd_s / 1e6,
+           "peak_bytes": peak, "bytes_per_lane": peak / lanes,
+           "launches": launches}
+    log(f"  layered {size}x{size} {len(frames)} frames {bounces} bounces: "
+        f"fwd+bwd {fwd_bwd_s:.3f} s = {out['fwd_bwd_mrays_per_s']:.3f} "
+        f"Mrays/s, forward {fwd_s:.3f} s = {out['fwd_mrays_per_s']:.3f} "
+        f"Mrays/s on {card.name_power}; peak {peak / 2**30:.3f} GiB above "
+        f"the scene, {peak / lanes:.0f} bytes a lane ({lanes} lanes); "
+        f"launches {launches}")
+    # textures, cutout chains; the dense, walk and packet kernels
+    model, camera, lights = PRESETS["hall_small"]()
+    small = flatten_model(model, lights, device=dev)
+    pos, iv, ip = camera.raygen_params(48, 48, dev)
+    params = {f: getattr(small, f) for f in GRAD_FIELDS}
+    for method, kernels in (("auto", WALK + ("dense_closest",)),
+                            ("packet", ("walk_candidates", "packet_closest",
+                                        "packet_any"))):
+        def loss_fn(p, method=method):
+            s = dataclasses.replace(small, **p)
+            return path.render_sample(s, pos, iv, ip, 48, 48, 0, 2, method,
+                                      **scene_flags(small)).mean()
+
+        with counted(f"hall_small backward ({method})", kernels) as n:
+            got = grads_of(loss_fn, params)
+        with plain_kernels():
+            want = grads_of(loss_fn, params)
+        assert_grads_equal(got, want, f"hall_small 48x48 ({method}, cutout) "
+                           f"kernels vs plain")
+        out[f"hall_small {method} launches"] = n
+    stats["backward"] = out
+
+
 KERNEL_SOURCES = {
     "dense_closest": ("dense_intersect.cu",
                       "optixpathtracer_tpu/intersect/pallas_kernels.py:114"),
@@ -1266,7 +1569,21 @@ def main():
     log("images")
     images_phase(scenes, dev)
     gpu_vs_cpu_phase(scenes, dev)
+    log("options phase")
+    options_phase(scenes, dev, stats)
+    log("backward phase")
+    backward_phase(scenes, dev, card, stats)
 
+    # the launches of the options and backward paths, by path
+    opt, bwd = stats["options"], stats["backward"]
+    path_launches = {
+        **{f"options: hall material_sort={n}": r["launches"]
+           for n, r in opt["material_sort"].items()},
+        **{f"options: {what}": r["launches"]
+           for what, r in opt["sorts"].items()},
+        "backward: layered": bwd["launches"],
+        "backward: hall_small auto": bwd["hall_small auto launches"],
+        "backward: hall_small packet": bwd["hall_small packet launches"]}
     kernels = []
     for name, spp, bounces in CELLS:
         for kname, (src, replaces) in KERNEL_SOURCES.items():
@@ -1284,11 +1601,14 @@ def main():
                 "bounce_bound_ms": s.get("bounce_bound_ms"),
                 "registers": registers.get(kname, (None,))[0],
                 "render_mrays_per_s": stats[(name, "render")]["mrays_per_s"],
+                "path_launches": {k: v[kname]
+                                  for k, v in path_launches.items()},
             })
     assert {k["name"].split(":")[0] for k in kernels} == set(KERNEL_SOURCES)
     print(json.dumps({"dense_vs_walk": stats[("diffuse", "dense_vs_walk")],
                       "block_compare": stats[("diffuse", "block_compare")],
-                      "walk_vs_packet": stats[("hall", "walk_vs_packet")]}))
+                      "walk_vs_packet": stats[("hall", "walk_vs_packet")],
+                      "options": opt, "backward": bwd}))
     print(json.dumps({"kernels": kernels}))
     print(card.name_power)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@ The JAX package `optixpathtracer_tpu` stays the reference; this package
 mirrors its layout and module names so every port module sits at the same
 path as its counterpart. It imports `torch` and never `jax`.
 
-Ported so far: the whole forward render path of every preset, textures
-and alpha cutout included.
+Ported so far: the whole forward render path of every preset, textures,
+alpha cutout and the `trace_paths` options included, and the
+material-table gradients.
   core/       math helpers with device-independent rounding, the TEA/LCG
               per-lane RNG, Fresnel and microfacet helpers
   camera/     matrix camera + raygen
@@ -21,10 +22,13 @@ and alpha cutout included.
   bsdf/       the diffuse, conductor, dielectric and layered glossy-diffuse
               lobes and their dispatch
   integrate/  surface context (textured), the wavefront path integrator
-              with NEE, and the alpha-cutout re-trace chains
+              with NEE and its ray, segment and material sorts, and the
+              alpha-cutout re-trace chains
+  diff/       gradients of a rendered loss w.r.t. the material table and
+              the lights (autograd), and their finite-difference check
 
-Not ported yet: the `trace_paths` sort options, the backward pass,
-multi-device rendering and the front end (CLI, config, film output).
+Not ported yet: multi-device rendering and the front end (CLI, config,
+film output).
 
 The CUDA kernels are compiled at first use into `_build/` (see `_build.py`);
 importing this package needs neither a GPU nor `nvcc`.

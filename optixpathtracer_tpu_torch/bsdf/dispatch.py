@@ -4,9 +4,9 @@
 Materials carry a first-class type enum. Dispatch evaluates every lobe in
 the static `active_lobes` tuple on every lane and lane-selects, so the
 wavefront stays dense and every lobe advances the RNG streams the same way
-on every lane, as in the reference. The material-sort `gates` argument
-(runtime lobe skipping) is not ported yet and raises with the other sort
-options of `trace_paths`.
+on every lane, as in the reference. The material-sorted shading of
+`trace_paths` (`material_sort`) also passes `gates`, one host bool a lobe,
+and a lobe gated off is skipped outright (`_gated`).
 """
 from __future__ import annotations
 
@@ -58,13 +58,6 @@ def resolve_stochastic_lobe(seed, mat: MaterialParams):
     return seed, mat._replace(mat_type=new_type.to(torch.int32))
 
 
-def _check_gates(gates):
-    if gates is not None:
-        raise NotImplementedError(
-            "runtime lobe gates (material_sort) are not ported yet; they "
-            "come with the trace_paths sort options")
-
-
 def _mirror_z(v):
     """Reflect a local-frame direction through the tangent plane."""
     return torch.cat([v[..., :2], -v[..., 2:]], dim=-1)
@@ -77,42 +70,67 @@ def _mirror_z(v):
 # itself (`GlossyDiffuse.h:110-135`).
 
 
+def _gated(gates, lobe, seed, eval_fn, zero_fn):
+    """`eval_fn(seed)` (returning (seed, value)), unless `gates` is given
+    and gates[lobe] is false: then the lobe is skipped and (seed,
+    zero_fn()) returned. The reference's lax.cond becomes a host `if`.
+
+    A skipped lobe does not advance the RNG streams it would have used, so
+    material-sorted images differ from unsorted ones by decorrelated
+    samples (as unbiased, not bit-identical)."""
+    if gates is None or gates[lobe]:
+        return eval_fn(seed)
+    return seed, zero_fn()
+
+
 def f(seed, mat: MaterialParams, wo, wi, active_lobes=ALL_LOBES,
       gates=None):
     """Evaluate the BSDF for every lane (resolved types only: call
     `resolve_stochastic_lobe` first). Returns (seed, rgb). `active_lobes`
-    (static) prunes lobes absent from the scene."""
-    _check_gates(gates)
+    (static) prunes lobes absent from the scene; `gates` (lobe -> bool)
+    skips lobes at run time (`_gated`). Only the layered lobe hands its
+    seed on, as in the reference."""
     t = mat.mat_type[..., None]
     flip = (wo[..., 2] < 0.0)[..., None]
     wo_m = torch.where(flip, _mirror_z(wo), wo)
     wi_m = torch.where(flip, _mirror_z(wi), wi)
-    out = torch.zeros(wo.shape[:-1] + (3,), device=wo.device)
+
+    def zero3():
+        return torch.zeros(wo.shape[:-1] + (3,), device=wo.device)
+
+    out = zero3()
     if DIFFUSE in active_lobes:
-        out = torch.where(t == DIFFUSE, _diffuse.f(mat.albedo, wo_m, wi_m),
-                          out)
+        _, f_d = _gated(gates, DIFFUSE, seed,
+                        lambda s: (s, _diffuse.f(mat.albedo, wo_m, wi_m)),
+                        zero3)
+        out = torch.where(t == DIFFUSE, f_d, out)
     if CONDUCTOR in active_lobes:
-        out = torch.where(t == CONDUCTOR,
-                          _conductor.f(mat.albedo, mat.roughness, wo_m, wi_m),
-                          out)
+        _, f_c = _gated(gates, CONDUCTOR, seed,
+                        lambda s: (s, _conductor.f(mat.albedo, mat.roughness,
+                                                   wo_m, wi_m)), zero3)
+        out = torch.where(t == CONDUCTOR, f_c, out)
     if DIELECTRIC in active_lobes:
         # the pure dielectric lobe tinted by albedo, as in the reference's
         # commented dispatch (`devicePrograms.cu:333`); it needs the true
         # orientation (the signed cosine picks the eta side), so no mirror
-        out = torch.where(t == DIELECTRIC,
-                          _dielectric.f(mat.roughness, wo, wi, eta=mat.ior)
-                          * mat.albedo, out)
+        _, f_x = _gated(gates, DIELECTRIC, seed,
+                        lambda s: (s, _dielectric.f(mat.roughness, wo, wi,
+                                                    eta=mat.ior)
+                                   * mat.albedo), zero3)
+        out = torch.where(t == DIELECTRIC, f_x, out)
     if GLOSSY_DIFFUSE in active_lobes:
-        seed, f_glossy = _glossy.f(seed, mat.albedo, mat.roughness, wo, wi,
-                                   eta=mat.ior)
+        seed, f_glossy = _gated(
+            gates, GLOSSY_DIFFUSE, seed,
+            lambda s: _glossy.f(s, mat.albedo, mat.roughness, wo, wi,
+                                eta=mat.ior), zero3)
         out = torch.where(t == GLOSSY_DIFFUSE, f_glossy, out)
     return seed, out
 
 
 def sample(seed, mat: MaterialParams, wo, active_lobes=ALL_LOBES,
            gates=None):
-    """Importance-sample the BSDF per lane. Returns (seed, BSDFSample)."""
-    _check_gates(gates)
+    """Importance-sample the BSDF per lane. Returns (seed, BSDFSample).
+    `gates`: see f()."""
     t = mat.mat_type
     flip = (wo[..., 2] < 0.0)[..., None]
     wo_m = torch.where(flip, _mirror_z(wo), wo)
@@ -121,20 +139,33 @@ def sample(seed, mat: MaterialParams, wo, active_lobes=ALL_LOBES,
         return s._replace(direction=torch.where(flip, _mirror_z(s.direction),
                                                 s.direction))
 
-    out = BSDFSample.invalid(wo.shape[:-1], wo.device)
+    def invalid():
+        return BSDFSample.invalid(wo.shape[:-1], wo.device)
+
+    def sample_x(s):
+        s, sx = _dielectric.sample(s, mat.roughness, wo, eta=mat.ior)
+        return s, sx._replace(color=sx.color * mat.albedo)
+
+    out = invalid()
     if DIFFUSE in active_lobes:
-        seed, s = _diffuse.sample(seed, mat.albedo, wo_m)
+        seed, s = _gated(gates, DIFFUSE, seed,
+                         lambda s: _diffuse.sample(s, mat.albedo, wo_m),
+                         invalid)
         out = where_sample(t == DIFFUSE, _unflip(s), out)
     if CONDUCTOR in active_lobes:
-        seed, s = _conductor.sample(seed, mat.albedo, mat.roughness, wo_m)
+        seed, s = _gated(gates, CONDUCTOR, seed,
+                         lambda s: _conductor.sample(s, mat.albedo,
+                                                     mat.roughness, wo_m),
+                         invalid)
         out = where_sample(t == CONDUCTOR, _unflip(s), out)
     if DIELECTRIC in active_lobes:
-        seed, s = _dielectric.sample(seed, mat.roughness, wo, eta=mat.ior)
-        out = where_sample(t == DIELECTRIC,
-                           s._replace(color=s.color * mat.albedo), out)
+        seed, s = _gated(gates, DIELECTRIC, seed, sample_x, invalid)
+        out = where_sample(t == DIELECTRIC, s, out)
     if GLOSSY_DIFFUSE in active_lobes:
-        seed, s = _glossy.sample(seed, mat.albedo, mat.roughness, wo,
-                                 eta=mat.ior)
+        seed, s = _gated(gates, GLOSSY_DIFFUSE, seed,
+                         lambda s: _glossy.sample(s, mat.albedo,
+                                                  mat.roughness, wo,
+                                                  eta=mat.ior), invalid)
         out = where_sample(t == GLOSSY_DIFFUSE, s, out)
     return seed, out
 

@@ -13,14 +13,16 @@ import numpy as np
 import pytest
 import torch
 
+from optixpathtracer_tpu_torch.bsdf import dispatch
 from optixpathtracer_tpu_torch.camera import Camera
 from optixpathtracer_tpu_torch.camera.camera import generate_rays
+from optixpathtracer_tpu_torch.diff import param_gradients
 from optixpathtracer_tpu_torch.integrate import path
 from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
 from optixpathtracer_tpu_torch.intersect import packet_kernels as pk
 from optixpathtracer_tpu_torch.intersect import walk_kernels as wk
 from optixpathtracer_tpu_torch.scene import (Material, Model, PointLight,
-                                             flatten_model)
+                                             flatten_model, procedural)
 from optixpathtracer_tpu_torch.scene.procedural import (PRESETS, quad,
                                                         scene_material_test,
                                                         uv_sphere)
@@ -768,3 +770,103 @@ def test_render_kernels_match_plain(cuda, name, size, spp, bounces):
     close = np.isclose(img, want, atol=1e-5, rtol=1e-4).all(axis=-1)
     assert close.mean() > 0.995
     np.testing.assert_allclose(img.mean(), want.mean(), rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# The trace_paths options and the backward pass, through the kernels
+# ---------------------------------------------------------------------------
+
+FOUR_LOBE_CAMERA = dict(position=np.array([0.0, 1.5, 4.0]),
+                        rotation=np.array([12.0, 180.0, 0.0]))
+
+
+def four_lobe_model(pkg, mat_cls, model_cls, light_cls):
+    """tests/test_material_sort.py's scene, from either package's classes:
+    a floor and one sphere of each resolved material type. Returns (model,
+    lights)."""
+    mats = [
+        mat_cls(base_color=np.array([0.7, 0.3, 0.2], np.float32),
+                mat_type="diffuse"),
+        mat_cls(base_color=np.array([0.9, 0.7, 0.4], np.float32),
+                metallic=1.0, roughness=0.3, mat_type="conductor"),
+        mat_cls(base_color=np.ones(3, np.float32), roughness=0.0,
+                mat_type="dielectric"),
+        mat_cls(base_color=np.array([0.2, 0.4, 0.7], np.float32),
+                roughness=0.2, mat_type="glossy_diffuse"),
+    ]
+    meshes = [pkg.quad((-4, 0, -4), (0, 0, 8), (8, 0, 0),
+                       mat_cls(base_color=np.full(3, 0.6, np.float32),
+                               mat_type="diffuse"), "floor")]
+    for i, m in enumerate(mats):
+        meshes.append(pkg.uv_sphere(0.5, (i * 1.4 - 2.1, 0.6, 0.0), 8, 16, m,
+                                    name=f"s{i}"))
+    return (model_cls(meshes=meshes),
+            [light_cls(np.array([0.0, 5.0, 2.0]), np.full(3, 30.0))])
+
+
+def _launches():
+    return sum(w.launches for w in (
+        dk.closest_kernel, dk.any_kernel, wk.candidates_kernel,
+        wk.closest_kernel, wk.any_kernel, pk.packet_closest_kernel,
+        pk.packet_any_kernel))
+
+
+def test_material_sort_render_kernels_match_plain(cuda):
+    """A material-sorted frame of the four-lobe scene through the kernels
+    equals the plain versions' by the engine-golden criterion."""
+    scene = flatten_model(*four_lobe_model(procedural, Material, Model,
+                                           PointLight), device=cuda)
+    params = Camera(**FOUR_LOBE_CAMERA).raygen_params(64, 64, cuda)
+    kw = dict(active_lobes=dispatch.ALL_LOBES, use_textures=False,
+              material_sort=4)
+    before = _launches()
+    img = path.render_sample(scene, *params, 64, 64, 0, 2, **kw)
+    assert _launches() > before
+    with plain_kernels():
+        want = path.render_sample(scene, *params, 64, 64, 0, 2, **kw)
+    img, want = img.cpu().numpy(), want.cpu().numpy()
+    assert np.isfinite(img).all() and (img >= 0).all() and img.mean() > 0.005
+    close = np.isclose(img, want, atol=1e-5, rtol=1e-4).all(axis=-1)
+    assert close.mean() > 0.995
+    np.testing.assert_allclose(img.mean(), want.mean(), rtol=1e-3)
+
+
+def test_layered_gradients_kernels_equal_plain(cuda):
+    """Material-table gradients of the layered scene (34 walk chunks) at
+    32x32 through the walk kernels equal the plain versions' bit for bit:
+    the kernels only choose the triangle."""
+    model, camera, lights = scene_material_test("layered", segments=(6, 12))
+    scene = flatten_model(model, lights, device=cuda)
+    cam = camera.raygen_params(32, 32, cuda)
+    kw = dict(fields=("mat_albedo", "mat_metallic", "mat_roughness",
+                      "mat_ior"), max_bounces=2, intersect_method="auto")
+    before = wk.closest_kernel.launches
+    got = param_gradients(scene, cam, 32, 32, [0, 1], **kw)
+    assert wk.closest_kernel.launches > before
+    with plain_kernels():
+        want = param_gradients(scene, cam, 32, 32, [0, 1], **kw)
+    for field, g in got.items():
+        assert torch.isfinite(g).all() and torch.equal(g, want[field]), field
+    assert got["mat_albedo"].abs().max() > 0
+
+
+@pytest.fixture(scope="module")
+def diffuse_scene(cuda):
+    model, camera, lights = PRESETS["diffuse"]()
+    return flatten_model(model, lights, device=cuda), camera
+
+
+@pytest.mark.parametrize("kw", [{"sort_rays": True}, {"sort_rays": "morton"},
+                                {"compact_shading": 4}])
+def test_sorted_frames_equal_unsorted(diffuse_scene, kw):
+    """`diffuse` (149 walk chunks) at 64x64, 3 bounces: sorting the
+    wavefront changes no lane's arithmetic and no hit, so the frame is the
+    unsorted one bit for bit."""
+    scene, camera = diffuse_scene
+    params = camera.raygen_params(64, 64, scene.device)
+    flags = dict(active_lobes=(dispatch.DIFFUSE,), use_textures=False)
+    before = wk.closest_kernel.launches
+    img = path.render_sample(scene, *params, 64, 64, 0, 3, **flags, **kw)
+    assert wk.closest_kernel.launches > before
+    want = path.render_sample(scene, *params, 64, 64, 0, 3, **flags)
+    assert img.mean() > 0.005 and torch.equal(img, want)

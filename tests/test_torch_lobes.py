@@ -264,8 +264,13 @@ def test_dispatch_mixed_lanes(inputs):
     assert_close(p_err[~layered], np.asarray(jp_err)[~layered], "pdf error")
     with pytest.raises(ValueError):
         dispatch.pdf(tm, _t(wo), _t(wi), layered="bogus")
-    with pytest.raises(NotImplementedError):
-        dispatch.f(_t(seed), tm, _t(wo), _t(wi), gates={0: True})
+    # every gate on is the ungated dispatch, bit for bit
+    on = dict.fromkeys(dispatch.ALL_LOBES, True)
+    gseed_f, gf = dispatch.f(_t(seed), tm, _t(wo), _t(wi), gates=on)
+    assert torch.equal(gseed_f, tseed_f) and torch.equal(gf, tf)
+    gseed_s, gs = dispatch.sample(_t(seed), tm, _t(wo), gates=on)
+    assert torch.equal(gseed_s, tseed_s)
+    assert all(torch.equal(a, b) for a, b in zip(gs, ts))
 
 
 # ---------------------------------------------------------------------------

@@ -111,16 +111,12 @@ def test_progressive_resume_and_callback(cornell):
 
 
 def test_unported_options_raise(cornell):
-    """The sort options and debug_pixel still raise; alpha cutout and
-    textured shading run, and on Cornell (no texture, no cutout texel)
-    leave the frame as it was."""
+    """Every option is ported now, so none raises (the sort options are
+    held to the reference in tests/test_torch_trace_options.py); alpha
+    cutout and textured shading run, and on Cornell (no texture, no cutout
+    texel) leave the frame as it was."""
     scene, camera, _, _ = cornell
     params = camera.raygen_params(8, 8, device="cpu")
-    for kw in ({"sort_rays": True}, {"material_sort": 2},
-               {"compact_shading": 2}, {"debug_pixel": 3}):
-        with pytest.raises(NotImplementedError):
-            path.render_sample(scene, *params, 8, 8, 0, active_lobes=(0,),
-                               use_textures=False, **kw)
     plain = path.render_sample(scene, *params, 8, 8, 0, active_lobes=(0,),
                                use_textures=False)
     for kw in ({"use_alpha_cutout": True}, {"use_textures": True}):
