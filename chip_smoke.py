@@ -973,30 +973,32 @@ def path_phase(name, scene, camera, spp, bounces, dev, stats, card):
 
 
 def device_profile(fn):
-    """torch.profiler over one call of fn: {"wall": ms, "device": busy ms,
-    "ours": {kernel: ms}, "launches": kernel launches}, or None where the
-    profiler saw no device time."""
+    """torch.profiler (device activity only) over one call of fn: {"wall":
+    ms, "device": busy ms, "ours": {kernel: ms}, "launches": kernel
+    launches}, or None where the profiler saw no device time. The raw
+    trace events are summed: key_averages() takes ~60 us an event, tens of
+    seconds for a 200k-launch frame."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     device_us, ours_us, launches = 0.0, {}, 0
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
             continue
-        dev_us = ev.self_device_time_total
+        dev_us = ev.duration_ns() / 1e3
         if dev_us <= 0:
             continue
         device_us += dev_us
-        launches += ev.count
+        launches += 1
+        name = ev.name()
         for tag in KERNEL_SOURCES:
-            if tag in ev.key:
+            if tag in name:
                 ours_us[tag] = ours_us.get(tag, 0.0) + dev_us
     if device_us == 0:
         return None
@@ -1261,14 +1263,14 @@ def material_sort_records(path):
         path._perm_from_key, path._shade_mat_segment = saved
 
 
-def frame_runs(what, scene, camera, bounces, kernels, warm=True,
-               **options):
-    """One 1-spp 1080p frame through render_sample ("auto"): a warm-up
-    (unless warm is false) with the material sort's records, a timed run
-    with the launch counters, a profiled run. Returns (image, {"wall_ms",
-    "launches", "profile"}, the warm-up's records)."""
+def frame_runs(what, scene, camera, bounces, kernels, **options):
+    """One 1-spp 1080p frame through render_sample ("auto"), twice: a
+    profiled run (also the warm-up), then a timed run with the launch
+    counters and the material sort's records. Returns (image, {"wall_ms",
+    "launches", "profile", "seconds"}, the records)."""
     import torch
     from optixpathtracer_tpu_torch.integrate import path
+    t_start = time.perf_counter()
     params = camera.raygen_params(WIDTH, HEIGHT, scene.device)
     flags = scene_flags(scene)
 
@@ -1276,16 +1278,15 @@ def frame_runs(what, scene, camera, bounces, kernels, warm=True,
         return path.render_sample(scene, *params, WIDTH, HEIGHT, 0,
                                   bounces, "auto", **flags, **options)
 
-    with material_sort_records(path) as records:
-        if warm:
-            frame()
-    with counted(what, kernels) as launches:
+    profile = device_profile(frame)
+    with counted(what, kernels) as launches, \
+            material_sort_records(path) as records:
         t0 = time.perf_counter()
         img = frame()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    return img, {"wall_ms": wall, "launches": launches,
-                 "profile": device_profile(frame)}, records
+    return img, {"wall_ms": wall, "launches": launches, "profile": profile,
+                 "seconds": time.perf_counter() - t_start}, records
 
 
 def run_line(what, run):
@@ -1295,7 +1296,8 @@ def run_line(what, run):
         f"{busy:.1f} ms of a profiled {p.get('wall', float('nan')):.1f} ms "
         f"(idle {1 - busy / p.get('wall', float('nan')):.0%}), "
         f"{p.get('launches')} kernel launches; ours "
-        f"{ {k: v for k, v in run['launches'].items() if v} }")
+        f"{ {k: v for k, v in run['launches'].items() if v} } "
+        f"({run['seconds']:.1f} s with the profile)")
 
 
 def options_phase(scenes, dev, stats):
@@ -1335,10 +1337,8 @@ def options_phase(scenes, dev, stats):
             out["sorts"][f"{name} unsorted"] = run
         for opt in SORTS:
             what = f"{name} {opt}"
-            # hall is warm from the material-sort frames
             img, run, _ = frame_runs(what, scene, camera, bounces,
-                                     CELL_KERNELS[name], warm=name != "hall",
-                                     **opt)
+                                     CELL_KERNELS[name], **opt)
             diff = float((img - unsorted[name]).abs().max())
             same = bool(torch.equal(img, unsorted[name]))
             run_line(f"{name} 1 spp {opt}", run)
@@ -1352,6 +1352,7 @@ def options_phase(scenes, dev, stats):
             out["sorts"][what] = dict(run, bit_identical=same,
                                       max_abs_diff=diff)
     # correctness: kernels against plain versions, GPU against CPU
+    t0 = time.perf_counter()
     scene, camera, _, _ = scenes["hall"]
     pos, iv, ip = camera.raygen_params(SMALL, SMALL, dev)
     zeros = torch.zeros((SMALL, SMALL, 3), device=dev)
@@ -1364,7 +1365,8 @@ def options_phase(scenes, dev, stats):
                                   2, 2, "auto", material_sort=8, **flags)
     assert_render_match(small.cpu().numpy(), plain.cpu().numpy(),
                         f"hall {SMALL}x{SMALL} 2 spp material_sort=8 kernels "
-                        f"vs plain")
+                        f"vs plain ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
     from optixpathtracer_tpu_torch.scene import flatten_model
     from optixpathtracer_tpu_torch.scene.procedural import PRESETS
     model, camera, lights = PRESETS["hall_small"]()
@@ -1376,8 +1378,8 @@ def options_phase(scenes, dev, stats):
         imgs.append(path.render_chunk(
             s, *params, 48, 48, acc, 0, 2, 2, "packet", material_sort=4,
             **scene_flags(s)).cpu().numpy())
-    assert_render_match(*imgs, "hall_small 48x48 2 spp material_sort=4 GPU "
-                        "vs CPU (packet)")
+    assert_render_match(*imgs, f"hall_small 48x48 2 spp material_sort=4 GPU "
+                        f"vs CPU (packet; {time.perf_counter() - t0:.1f} s)")
     stats["options"] = out
 
 
@@ -1416,8 +1418,14 @@ def backward_phase(scenes, dev, card, stats):
     size, frames, bounces = GRAD_SIZE, list(GRAD_FRAMES), GRAD_BOUNCES
     cam = camera.raygen_params(size, size, dev)
     kw = dict(fields=GRAD_FIELDS, max_bounces=bounces, intersect_method="auto")
-    param_gradients(scene, cam, size, size, frames[:1], **kw)  # warm-up
-    torch.cuda.synchronize()
+    # warm-up: one frame's fwd+bwd, profiled for the device's busy share
+    prof = device_profile(lambda: param_gradients(scene, cam, size, size,
+                                                  frames[:1], **kw))
+    if prof is not None:
+        log(f"  layered {size}x{size} one frame fwd+bwd, profiled: wall "
+            f"{prof['wall']:.1f} ms, device busy {prof['device']:.1f} ms "
+            f"({prof['device'] / prof['wall']:.0%}), {prof['launches']} "
+            f"kernel launches, ours {prof['ours']}")
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     with counted("layered backward", WALK) as launches:
@@ -1425,7 +1433,8 @@ def backward_phase(scenes, dev, card, stats):
         got = param_gradients(scene, cam, size, size, frames, **kw)
         torch.cuda.synchronize()
         fwd_bwd_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() - base
+    max_allocated = torch.cuda.max_memory_allocated()
+    peak = max_allocated - base
     with plain_kernels():
         want = param_gradients(scene, cam, size, size, frames, **kw)
     assert_grads_equal(got, want, f"layered {size}x{size} frames {frames} "
@@ -1445,12 +1454,14 @@ def backward_phase(scenes, dev, card, stats):
     out = {"fwd_bwd_s": fwd_bwd_s, "fwd_s": fwd_s,
            "fwd_bwd_mrays_per_s": rays / fwd_bwd_s / 1e6,
            "fwd_mrays_per_s": rays / fwd_s / 1e6,
-           "peak_bytes": peak, "bytes_per_lane": peak / lanes,
-           "launches": launches}
+           "max_memory_allocated": max_allocated, "peak_bytes": peak,
+           "bytes_per_lane": peak / lanes,
+           "launches": launches, "profile_one_frame": prof}
     log(f"  layered {size}x{size} {len(frames)} frames {bounces} bounces: "
         f"fwd+bwd {fwd_bwd_s:.3f} s = {out['fwd_bwd_mrays_per_s']:.3f} "
         f"Mrays/s, forward {fwd_s:.3f} s = {out['fwd_mrays_per_s']:.3f} "
-        f"Mrays/s on {card.name_power}; peak {peak / 2**30:.3f} GiB above "
+        f"Mrays/s on {card.name_power}; max_memory_allocated "
+        f"{max_allocated / 2**30:.3f} GiB, {peak / 2**30:.3f} GiB above "
         f"the scene, {peak / lanes:.0f} bytes a lane ({lanes} lanes); "
         f"launches {launches}")
     # textures, cutout chains; the dense, walk and packet kernels

@@ -21,7 +21,6 @@ the reference's, under its conditions; where it branches on the device
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..bsdf import dispatch
@@ -237,12 +236,6 @@ def _shade_mat_segment(seed, surf, o, d, beta, alive, nee, gates,
 N_MAT_BUCKETS = 6  # 5 material types + dead lanes
 
 
-def _segment_any(mask, n_seg):
-    """[n_seg] host bools: has segment i a true lane? One device-to-host
-    copy for every segment."""
-    return mask.reshape(n_seg, -1).any(dim=1).tolist()
-
-
 def _shade_wave_material_sorted(scene, o, d, seed, hit, beta, alive,
                                 radiance, pix, n_seg,
                                 reference_compat, use_textures,
@@ -308,7 +301,7 @@ def _shade_wave(scene, o, d, seed, hit, beta, alive, radiance,
 def _debug_print(bounce, surf, alive, i):
     """One host line of lane i's surface, with the reference's fields."""
     def v(x):
-        return np.asarray(x[i].detach().cpu().numpy())
+        return x[i].detach().cpu().numpy()
     print(f"debug ray bounce {bounce}: pos={v(surf.position)} "
           f"albedo={v(surf.mat.albedo)} ns={v(surf.s_normal)} "
           f"ng={v(surf.g_normal)} rough={v(surf.mat.roughness)} "
@@ -395,11 +388,11 @@ def trace_paths(scene, o, d, seed, max_bounces: int,
         elif compact_shading and bounce and debug_pixel is None \
                 and r % compact_shading == 0:
             # dead lanes sort last, so trailing segments skip the whole
-            # shading stage
+            # shading stage; one copy to the host for every segment
             size = r // compact_shading
             pieces = []
-            for si, any_live in enumerate(_segment_any(alive,
-                                                       compact_shading)):
+            live = alive.reshape(compact_shading, size).any(dim=1).tolist()
+            for si, any_live in enumerate(live):
                 sl = slice(si * size, (si + 1) * size)
                 carry = (seed[sl], radiance[sl], beta[sl], o[sl], d[sl],
                          alive[sl])

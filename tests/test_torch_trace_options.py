@@ -39,6 +39,7 @@ from optixpathtracer_tpu_torch.scene.flatten import scene_active_lobes
 from optixpathtracer_tpu_torch.scene.procedural import PRESETS
 
 from test_torch_cuda import FOUR_LOBE_CAMERA, four_lobe_model
+from test_torch_lobes import _mats, _t
 from test_torch_render import assert_images_match
 
 torch.set_num_threads(1)
@@ -203,19 +204,6 @@ def lanes():
                     np.uint32), wo=unit(), wi=unit())
 
 
-def _mat(x, mod, conv):
-    return mod.MaterialParams(
-        albedo=conv(x["albedo"]), metallic=conv(np.zeros_like(x["rough"])),
-        roughness=conv(x["rough"]), ior=conv(x["ior"]),
-        mat_type=conv(x["mat_type"]))
-
-
-def _t(a):
-    a = np.asarray(a)
-    return torch.from_numpy(a.astype(np.int64) if a.dtype == np.uint32
-                            else a.copy())
-
-
 @pytest.mark.parametrize("off", [(), (dispatch.GLOSSY_DIFFUSE,),
                                  (dispatch.DIFFUSE, dispatch.DIELECTRIC),
                                  dispatch.ALL_LOBES])
@@ -227,7 +215,8 @@ def test_gates_match_reference(lanes, off):
     x = lanes
     gates = {lobe: lobe not in off for lobe in dispatch.ALL_LOBES}
     jgates = {lobe: jnp.asarray(v) for lobe, v in gates.items()}
-    tm, jm = _mat(x, dispatch, _t), _mat(x, jdispatch, jnp.asarray)
+    n = len(x["rough"])
+    tm, jm = _mats(x, dispatch, _t, n), _mats(x, jdispatch, jnp.asarray, n)
     seed = _t(x["seed"])
     tseed_f, tf = dispatch.f(seed, tm, _t(x["wo"]), _t(x["wi"]), gates=gates)
     tseed_s, ts = dispatch.sample(seed, tm, _t(x["wo"]), gates=gates)
