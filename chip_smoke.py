@@ -91,6 +91,26 @@ runs the dense closest kernel over the 40-triangle cutout sub-scene).
    seconds), peak device memory and bytes a lane. Then hall_small at
    48x48 through "auto" (walk, dense, cutout chains) and "packet":
    gradients finite, kernels equal plain.
+6. Front-end phase, through the entry points a user calls. The shipped
+   flagship config through the CLI (`cli.main(["--config",
+   "scenes/config5_full.json", ...])`: scene1_spheres, 1024x1024, 1024
+   spp, 2 bounces, `sharded` with one rank, so the fallback line; the
+   EXR, PNG, BMP and checkpoint in a temporary directory): wall, Mrays/s,
+   the walk kernels' launches, the seconds of scene load, checkpoint and
+   output writes; the EXR read back is the image bit for bit, the PNG and
+   BMP decode to `to_display` of it. hall at 1920x1080, 2 bounces,
+   through the CLI: A at 4 spp, B1 at 2 spp with a checkpoint, B2 at 4
+   spp resumed from it; B2 equals A bit for bit, and A equals `render` of
+   the same 4 frames, whose wall against the CLI's is the front end's
+   cost. dist with NCCL at world size 1 (torchrun's variables set in the
+   process, a free port): the sharded hall 1080p frame and its four
+   270-row blocks equal `render_sample` bit for bit, and
+   `material_grad_step` on layered at 256x256 equals the step of the
+   single-process autograd gradients within rtol 1e-6. The preview,
+   headless, on Cornell at 256x256 for 5 s on a free port: a PNG fetched
+   over HTTP from 127.0.0.1, samples > 0. The replay: the gradients of an
+   L2 loss over MaterialTestReplay's parameters (conductor, 64x64,
+   "pallas") through the kernels equal the plain versions' bit for bit.
 Every phase that drives a path sets the launch counters to 0 just before
 and reads them just after, and fails if a kernel of that path never
 launched.
@@ -104,6 +124,7 @@ without a CUDA device or without the rest of the repository.
 import contextlib
 import dataclasses
 import functools
+import io
 import json
 import re
 import subprocess
@@ -1487,6 +1508,421 @@ def backward_phase(scenes, dev, card, stats):
     stats["backward"] = out
 
 
+# ---------------------------------------------------------------------------
+# Front-end phase: the CLI and render_config, dist, preview and replay
+# ---------------------------------------------------------------------------
+
+CONFIG5 = "scenes/config5_full.json"  # run as shipped: 56-71 s on an H100
+ROW_BLOCKS = 4           # dist: the frame recomputed as 4 row blocks
+HALL_KERNELS = CELL_KERNELS["hall"]
+PREVIEW_SECONDS = 5.0
+REPLAY_SIZE = 64
+GRAD_STEP_RTOL = 1e-6
+
+
+class Tee:
+    """Standard output that is also kept, to read the CLI's lines; the
+    heartbeat lines are kept but not echoed."""
+
+    def __init__(self, out):
+        self.out, self.lines, self.pending = out, [], ""
+
+    def write(self, s):
+        self.lines.append(s)
+        self.pending += s
+        while "\n" in self.pending:
+            line, self.pending = self.pending.split("\n", 1)
+            if not line.startswith("at Sample:"):
+                self.out.write(line + "\n")
+        return len(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.lines)
+
+
+@contextlib.contextmanager
+def front_end_records():
+    """Wrap render.py's scene load, checkpoint and output writes with
+    timers, and keep what render_config returns: yields {"load_s",
+    "checkpoint_s", "output_s", "checkpoints", "images"}."""
+    from optixpathtracer_tpu_torch import render
+    rec = {"load_s": 0.0, "checkpoint_s": 0.0, "output_s": 0.0,
+           "checkpoints": 0, "images": []}
+    names = ("load_scene", "save_checkpoint", "write_exr", "write_png",
+             "write_bmp", "render_config")
+    saved = {n: getattr(render, n) for n in names}
+
+    def timed(name, key):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = saved[name](*a, **k)
+            rec[key] += time.perf_counter() - t0
+            if name == "save_checkpoint":
+                rec["checkpoints"] += 1
+            return out
+        return run
+
+    render.load_scene = timed("load_scene", "load_s")
+    render.save_checkpoint = timed("save_checkpoint", "checkpoint_s")
+    for n in ("write_exr", "write_png", "write_bmp"):
+        setattr(render, n, timed(n, "output_s"))
+
+    def render_config(*a, **k):
+        img = saved["render_config"](*a, **k)
+        rec["images"].append(img)
+        return img
+
+    render.render_config = render_config
+    try:
+        yield rec
+    finally:
+        for n, f in saved.items():
+            setattr(render, n, f)
+
+
+def run_cli(what, argv, kernels):
+    """cli.main(argv) with the launch counters zeroed just before and read
+    just after, its output kept: (wall s, launches, records, stdout)."""
+    import torch
+    from optixpathtracer_tpu_torch import cli
+    tee = Tee(sys.stdout)
+    with counted(what, kernels) as launches, front_end_records() as rec, \
+            contextlib.redirect_stdout(tee):
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{what}: the CLI returned {rc}")
+    log(f"  {what}: {wall:.3f} s wall (scene load {rec['load_s']:.3f} s, "
+        f"{rec['checkpoints']} checkpoints {rec['checkpoint_s']:.3f} s, "
+        f"outputs {rec['output_s']:.3f} s); launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return wall, launches, rec, tee.text()
+
+
+def check_outputs(img, exr, png, bmp, what):
+    """The EXR read back is the image bit for bit; the PNG and BMP decode
+    to its display transform."""
+    import numpy as np
+    from PIL import Image
+    from optixpathtracer_tpu_torch.film import read_exr, to_display
+    want = to_display(img)
+    if not np.array_equal(read_exr(exr), img):
+        raise AssertionError(f"{what}: the EXR is not the image")
+    if not np.array_equal(np.asarray(Image.open(png).convert("RGB"))[::-1],
+                          want):
+        raise AssertionError(f"{what}: the PNG is not to_display(image)")
+    if not np.array_equal(np.asarray(Image.open(bmp))[::-1], want):
+        raise AssertionError(f"{what}: the BMP is not to_display(image)")
+
+
+def config5_cli(tmp, card):
+    import numpy as np
+    from optixpathtracer_tpu_torch.config import RenderConfig
+    cfg = RenderConfig.from_json(CONFIG5)
+    spp = cfg.spp
+    out = {e: f"{tmp}/full.{e}" for e in ("exr", "png", "bmp", "ckpt")}
+    argv = ["--config", CONFIG5, "--out-exr", out["exr"], "--out-png",
+            out["png"], "--out-bmp", out["bmp"], "--checkpoint", out["ckpt"]]
+    wall, launches, rec, text = run_cli(f"config5 CLI ({cfg.scene}, "
+                                        f"{cfg.width}x{cfg.height}, {spp} "
+                                        f"spp)", argv, WALK)
+    img = rec["images"][0]
+    if img.shape != (cfg.height, cfg.width, 3) or not np.isfinite(img).all() \
+            or img.mean() <= 0:
+        raise AssertionError("config5: bad image")
+    if "sharded: falling back to single-device (1 devices" not in text \
+            or f"at Sample: {spp}/{spp}" not in text:
+        raise AssertionError("config5: no fallback line or heartbeat")
+    check_outputs(img, out["exr"], out["png"], out["bmp"], "config5")
+    mrays = cfg.width * cfg.height * spp * cfg.max_bounces * 2 / wall / 1e6
+    writes = rec["checkpoint_s"] + rec["output_s"]
+    log(f"  config5: {wall:.3f} s, {mrays:.2f} Mrays/s on "
+        f"{card.name_power}; walk launches "
+        f"{ {k: launches[k] for k in WALK} }; checkpoint + output writes "
+        f"{writes:.3f} s ({writes / wall:.1%} of the wall); EXR, PNG and "
+        f"BMP hold the image; mean {img.mean():.5f}")
+    return {"spp": spp, "wall_s": wall, "mrays_per_s": mrays,
+            "launches": launches, "load_s": rec["load_s"],
+            "checkpoint_s": rec["checkpoint_s"],
+            "checkpoints": rec["checkpoints"],
+            "output_s": rec["output_s"]}
+
+
+def hall_cli(tmp, scenes, card):
+    """Hall at 1080p through the CLI: A uninterrupted, B1 stopped at a
+    checkpoint, B2 resumed from it; B2 equals A bit for bit. Then
+    `render` of the same 4 frames on the flattened scene."""
+    import numpy as np
+    import torch
+    from optixpathtracer_tpu_torch.integrate import path
+    ck = f"{tmp}/hall.ckpt"
+    runs = {}
+    for tag, extra in (("A", ["--spp", "4"]),
+                       ("B1", ["--spp", "2", "--checkpoint", ck,
+                               "--checkpoint-every", "2"]),
+                       ("B2", ["--spp", "4", "--checkpoint", ck,
+                               "--checkpoint-every", "2"])):
+        wall, launches, rec, text = run_cli(
+            f"hall CLI run {tag}",
+            ["--scene", "hall", "--width", str(WIDTH), "--height",
+             str(HEIGHT), "--max-bounces", "2", "--out-exr",
+             f"{tmp}/hall_{tag}.exr"] + extra, HALL_KERNELS)
+        runs[tag] = {"wall_s": wall, "launches": launches,
+                     "load_s": rec["load_s"],
+                     "checkpoint_s": rec["checkpoint_s"],
+                     "output_s": rec["output_s"],
+                     "image": rec["images"][0]}
+    if "resumed from" not in text or "at sample 2" not in text:
+        raise AssertionError("hall run B2 did not resume at sample 2")
+    a, b2 = runs["A"].pop("image"), runs["B2"].pop("image")
+    runs["B1"].pop("image")
+    if not np.array_equal(a, b2):
+        n = int((a != b2).any(axis=-1).sum())
+        raise AssertionError(f"hall: resumed run differs on {n} pixels")
+    scene, camera, _, _ = scenes["hall"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = path.render(scene, camera, WIDTH, HEIGHT, spp=4, max_bounces=2)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    if not np.array_equal(ref.cpu().numpy(), a):
+        raise AssertionError("hall: the CLI's image is not render's")
+    cost = runs["A"]["wall_s"] - render_s
+    log(f"  hall CLI: B2 (resumed at 2) equals A bit for bit, and render's "
+        f"4 frames; CLI wall {runs['A']['wall_s']:.3f} s against render "
+        f"{render_s:.3f} s: front end {cost:.3f} s "
+        f"({cost / runs['A']['wall_s']:.1%}; scene load "
+        f"{runs['A']['load_s']:.3f} s, EXR {runs['A']['output_s']:.3f} s) "
+        f"on {card.name_power}")
+    return {"runs": runs, "render_s": render_s, "front_end_s": cost}
+
+
+def dist_card(scenes, dev):
+    """torch.distributed with NCCL at world size 1 (torchrun's variables
+    set in-process, a free port): the sharded frame, the frame as
+    ROW_BLOCKS row blocks (lost-shard recovery) and a material gradient
+    step, each against the single-process path."""
+    import os
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+    from optixpathtracer_tpu_torch.dist import (initialize_distributed,
+                                                make_mesh,
+                                                material_grad_step,
+                                                render_rows,
+                                                render_sample_sharded)
+    from optixpathtracer_tpu_torch.dist.sharding import GRAD_FIELDS as FIELDS
+    from optixpathtracer_tpu_torch.integrate import path
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()),
+           "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    os.environ.update(env)
+    out = {}
+    try:
+        multi = initialize_distributed(device="cuda")
+        mesh = make_mesh()
+        if multi or tdist.get_backend() != "nccl" or mesh.size != 1:
+            raise AssertionError("dist: not NCCL at world size 1")
+        scene, camera, _, _ = scenes["hall"]
+        params = camera.raygen_params(WIDTH, HEIGHT, dev)
+        flags = scene_flags(scene)
+        with counted("dist: hall render_sample_sharded",
+                     HALL_KERNELS) as n:
+            sharded = render_sample_sharded(mesh, scene, *params, WIDTH,
+                                            HEIGHT, 0, 2, "auto", **flags)
+        out["launches sharded"] = n
+        block = HEIGHT // ROW_BLOCKS
+        with counted(f"dist: hall render_rows x{ROW_BLOCKS}",
+                     HALL_KERNELS) as n:
+            rows = [render_rows(scene, *params, WIDTH, HEIGHT, 0, y0, block,
+                                2, "auto", **flags)
+                    for y0 in range(0, HEIGHT, block)]
+        out["launches rows"] = n
+        full = path.render_sample(scene, *params, WIDTH, HEIGHT, 0, 2,
+                                  "auto", **flags)
+        if not torch.equal(sharded, full):
+            raise AssertionError("dist: sharded frame differs")
+        for i, r in enumerate(rows):
+            if not torch.equal(r, full[block * i:block * (i + 1)]):
+                raise AssertionError(f"dist: rows block {i} differs")
+        log(f"  dist (NCCL, world 1): hall {WIDTH}x{HEIGHT} sharded frame "
+            f"and {ROW_BLOCKS} {block}-row blocks equal render_sample bit "
+            f"for bit")
+        # a gradient step on layered against the single-process autograd
+        scene, camera, _, _ = scenes["layered"]
+        size = GRAD_SIZE
+        cam = camera.raygen_params(size, size, dev)
+        lobes = scene_flags(scene)["active_lobes"]
+        target = torch.as_tensor(np.random.default_rng(0).uniform(
+            0.0, 0.1, (size, size, 3)).astype(np.float32), device=dev)
+        lr = 0.05
+        with counted("dist: layered material_grad_step", WALK) as n:
+            new, loss = material_grad_step(mesh, scene, cam, target, size,
+                                           size, 0, lr=lr, max_bounces=2,
+                                           intersect_method="auto",
+                                           active_lobes=lobes)
+        out["launches grad step"] = n
+
+        def loss_fn(p):
+            img = path.render_sample(dataclasses.replace(scene, **p), *cam,
+                                     size, size, 0, 2, "auto",
+                                     active_lobes=lobes)
+            return ((img - target) ** 2).mean()
+
+        grads = grads_of(loss_fn, {f: getattr(scene, f) for f in FIELDS})
+        worst = 0.0
+        for f in FIELDS:
+            want = getattr(scene, f) - lr * grads[f]
+            if f != "mat_ior":
+                want = torch.clamp(want, 0.0, 1.0)
+            got = getattr(new, f)
+            if not torch.allclose(got, want, rtol=GRAD_STEP_RTOL, atol=0.0):
+                raise AssertionError(f"dist: {f} step differs")
+            worst = max(worst, float(((got - want).abs()
+                                      / want.abs().clamp_min(1e-30)).max()))
+        log(f"  dist: layered {size}x{size} material_grad_step equals the "
+            f"single-process autograd step within rtol {GRAD_STEP_RTOL} "
+            f"(max rel {worst:.2e}); loss {float(loss):.6f}")
+        out["grad_step_max_rel"] = worst
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+    return out
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def preview_card(scenes):
+    """run_preview on Cornell at its default 256x256 for PREVIEW_SECONDS on
+    a free port, headless; one PNG fetched over HTTP from 127.0.0.1."""
+    import io
+    import threading
+    import urllib.request
+    from PIL import Image
+    from optixpathtracer_tpu_torch import preview
+    scene, camera, _, _ = scenes["scene3_cornell"]
+    states, result = [], {}
+
+    class Recorded(preview.PreviewState):
+        def __init__(self, cam):
+            super().__init__(cam)
+            states.append(self)
+
+    port = free_port()
+    saved = preview.PreviewState
+    preview.PreviewState = Recorded
+    heartbeat = io.StringIO()
+    try:
+        with counted("preview", ("dense_closest", "dense_any")) as n, \
+                contextlib.redirect_stdout(heartbeat):
+            thread = threading.Thread(target=lambda: result.update(
+                img=preview.run_preview(scene, camera, port=port,
+                                        max_seconds=PREVIEW_SECONDS)))
+            thread.start()
+            png = b""
+            while not png and thread.is_alive():
+                time.sleep(0.2)
+                try:  # once a frame is published, fetch it
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{port}/state",
+                            timeout=5) as resp:
+                        if json.loads(resp.read())["samples"] > 0:
+                            with urllib.request.urlopen(
+                                    f"http://127.0.0.1:{port}/frame.png",
+                                    timeout=5) as frame:
+                                png = frame.read()
+                except OSError:
+                    continue
+            thread.join(120)
+    finally:
+        preview.PreviewState = saved
+    if thread.is_alive() or "img" not in result:
+        raise AssertionError("preview: the render loop did not end")
+    if Image.open(io.BytesIO(png)).size != (256, 256):
+        raise AssertionError("preview: bad PNG")
+    samples = states[0].samples
+    if samples <= 0:
+        raise AssertionError("preview: no sample")
+    beats = heartbeat.getvalue().count("at Sample:")
+    log(f"  preview: {samples} samples in {PREVIEW_SECONDS} s "
+        f"({states[0].spp_per_s:.1f} spp/s at 256x256, {beats} heartbeat "
+        f"lines), a {len(png)}-byte PNG over HTTP; launches {n}")
+    return {"samples": samples, "spp_per_s": states[0].spp_per_s,
+            "launches": n}
+
+
+def replay_card(dev):
+    """One gradient of an L2 loss over MaterialTestReplay's parameters
+    through "pallas": through the kernels and the plain versions, bit for
+    bit."""
+    import numpy as np
+    import torch
+    from optixpathtracer_tpu_torch.diff.replay import MaterialTestReplay
+    from optixpathtracer_tpu_torch.integrate import path
+    replay = MaterialTestReplay("conductor", device=dev)
+    size = REPLAY_SIZE
+    lobes = scene_flags(replay.scene0)["active_lobes"]
+    target = torch.as_tensor(np.random.default_rng(1).uniform(
+        0.0, 0.2, (size, size, 3)).astype(np.float32), device=dev)
+
+    def loss_fn(p):
+        img = path.render_sample(replay.scene_with(p),
+                                 *replay.raygen_with(p, size, size), size,
+                                 size, 0, 2, "pallas", False, lobes)
+        return ((img - target) ** 2).mean()
+
+    params = replay.init_params()
+    with counted("replay", ("dense_closest", "dense_any")) as n:
+        got = grads_of(loss_fn, params)
+    with plain_kernels():
+        want = grads_of(loss_fn, params)
+    for k in params:
+        if not torch.isfinite(got[k]).all() or not torch.equal(got[k],
+                                                               want[k]):
+            raise AssertionError(f"replay: {k} gradients differ")
+    log(f"  replay (conductor, {size}x{size}, pallas): gradients of "
+        f"{len(params)} parameters bit for bit the plain versions'; max |g| "
+        f"{ {k: float(v.abs().max()) for k, v in got.items()} }; "
+        f"launches {n}")
+    return {"launches": n}
+
+
+def frontend_launches(fe):
+    """{path: launches} of every front-end run."""
+    return {
+        "frontend: config5 CLI": fe["config5"]["launches"],
+        **{f"frontend: hall CLI {tag}": r["launches"]
+           for tag, r in fe["hall_cli"]["runs"].items()},
+        "frontend: dist hall sharded": fe["dist"]["launches sharded"],
+        "frontend: dist hall rows": fe["dist"]["launches rows"],
+        "frontend: dist layered grad step": fe["dist"]["launches grad step"],
+        "frontend: preview": fe["preview"]["launches"],
+        "frontend: replay": fe["replay"]["launches"]}
+
+
+def frontend_phase(scenes, dev, card, stats):
+    import tempfile
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["config5"] = config5_cli(tmp, card)
+        out["hall_cli"] = hall_cli(tmp, scenes, card)
+    out["dist"] = dist_card(scenes, dev)
+    out["preview"] = preview_card(scenes)
+    out["replay"] = replay_card(dev)
+    stats["frontend"] = out
+
+
 KERNEL_SOURCES = {
     "dense_closest": ("dense_intersect.cu",
                       "optixpathtracer_tpu/intersect/pallas_kernels.py:114"),
@@ -1584,8 +2020,10 @@ def main():
     options_phase(scenes, dev, stats)
     log("backward phase")
     backward_phase(scenes, dev, card, stats)
+    log("front-end phase")
+    frontend_phase(scenes, dev, card, stats)
 
-    # the launches of the options and backward paths, by path
+    # the launches of the options, backward and front-end paths, by path
     opt, bwd = stats["options"], stats["backward"]
     path_launches = {
         **{f"options: hall material_sort={n}": r["launches"]
@@ -1594,7 +2032,8 @@ def main():
            for what, r in opt["sorts"].items()},
         "backward: layered": bwd["launches"],
         "backward: hall_small auto": bwd["hall_small auto launches"],
-        "backward: hall_small packet": bwd["hall_small packet launches"]}
+        "backward: hall_small packet": bwd["hall_small packet launches"],
+        **frontend_launches(stats["frontend"])}
     kernels = []
     for name, spp, bounces in CELLS:
         for kname, (src, replaces) in KERNEL_SOURCES.items():
@@ -1619,7 +2058,8 @@ def main():
     print(json.dumps({"dense_vs_walk": stats[("diffuse", "dense_vs_walk")],
                       "block_compare": stats[("diffuse", "block_compare")],
                       "walk_vs_packet": stats[("hall", "walk_vs_packet")],
-                      "options": opt, "backward": bwd}))
+                      "options": opt, "backward": bwd,
+                      "frontend": stats["frontend"]}))
     print(json.dumps({"kernels": kernels}))
     print(card.name_power)
     print(json.dumps({"ok": True, "device": {

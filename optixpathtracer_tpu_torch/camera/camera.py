@@ -107,17 +107,20 @@ class Camera:
                      for a in (self.position, inv_view, inv_proj))
 
 
-def generate_rays(position, inv_view, inv_proj, width, height):
-    """World-space primary rays through the pixel centres
-    (reference `devicePrograms.cu:601-623`): (origins, directions), each
-    [height, width, 3], row 0 at the bottom (GL convention)."""
-    device = inv_proj.device
-    ys, xs = torch.meshgrid(
-        torch.arange(height, dtype=torch.float32, device=device),
-        torch.arange(width, dtype=torch.float32, device=device),
-        indexing="ij")
-    x_ndc = div(xs + 0.5, float(width)) * 2.0 - 1.0
-    y_ndc = div(ys + 0.5, float(height)) * 2.0 - 1.0
+def generate_rays(position, inv_view, inv_proj, width, height,
+                  pixel_x=None, pixel_y=None):
+    """World-space primary rays (reference `devicePrograms.cu:601-623`):
+    (origins, directions), each [..., 3]. pixel_x/pixel_y (float32
+    tensors of one shape) default to the pixel centres of the full image,
+    [height, width], row 0 at the bottom (GL convention)."""
+    if pixel_x is None or pixel_y is None:
+        device = inv_proj.device
+        pixel_y, pixel_x = torch.meshgrid(
+            torch.arange(height, dtype=torch.float32, device=device),
+            torch.arange(width, dtype=torch.float32, device=device),
+            indexing="ij")
+    x_ndc = div(pixel_x + 0.5, float(width)) * 2.0 - 1.0
+    y_ndc = div(pixel_y + 0.5, float(height)) * 2.0 - 1.0
     one = torch.ones_like(x_ndc)
     ndc = (x_ndc, y_ndc, one, one)
     p_view = _mat_vec(inv_proj, ndc)
@@ -125,6 +128,24 @@ def generate_rays(position, inv_view, inv_proj, width, height):
     p_world = _mat_vec(inv_view, p_view)
     d = normalize(torch.stack(p_world[:3], dim=-1))
     return position.expand_as(d), d
+
+
+def jittered_rays(seed, position, inv_view, inv_proj, width, height):
+    """Primary rays with a per-sample sub-pixel jitter, for antialiased
+    accumulation (the reference shoots through pixel centres,
+    `devicePrograms.cu:607-608`). seed: [height, width] (int64 holding
+    u32). Returns (seed, o, d)."""
+    from ..core import rng
+    device = inv_proj.device
+    ys, xs = torch.meshgrid(
+        torch.arange(height, dtype=torch.float32, device=device),
+        torch.arange(width, dtype=torch.float32, device=device),
+        indexing="ij")
+    seed, u = rng.rnd2(seed)
+    px = xs + u[..., 0] - 0.5
+    py = ys + u[..., 1] - 0.5
+    o, d = generate_rays(position, inv_view, inv_proj, width, height, px, py)
+    return seed, o, d
 
 
 def _mat_vec(m, x):

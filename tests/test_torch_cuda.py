@@ -772,6 +772,40 @@ def test_render_kernels_match_plain(cuda, name, size, spp, bounces):
     np.testing.assert_allclose(img.mean(), want.mean(), rtol=1e-3)
 
 
+def test_cli_kernels_match_plain(cuda, tmp_path):
+    """The CLI on Cornell at 64x64 (the default device, the GPU) through
+    the dense kernels, with a checkpoint and all three outputs, equals the
+    plain versions' render by the engine-golden criterion; its EXR holds
+    the returned accumulator bit for bit."""
+    from optixpathtracer_tpu_torch import cli
+    from optixpathtracer_tpu_torch.film import read_exr
+    from optixpathtracer_tpu_torch.render import load_checkpoint
+
+    def run(tag):
+        out = [str(tmp_path / f"{tag}.{e}") for e in ("exr", "png", "bmp",
+                                                     "npz")]
+        assert cli.main(["--scene", "scene3_cornell", "--width", "64",
+                         "--height", "64", "--spp", "2", "--max-bounces",
+                         "2", "--out-exr", out[0], "--out-png", out[1],
+                         "--out-bmp", out[2], "--checkpoint", out[3]]) == 0
+        accum, n = load_checkpoint(out[3])
+        img = read_exr(out[0])
+        assert n == 2 and accum.is_cuda
+        np.testing.assert_array_equal(img, accum.cpu().numpy())
+        return img
+
+    before = dk.closest_kernel.launches, dk.any_kernel.launches
+    img = run("kernels")
+    assert dk.closest_kernel.launches - before[0] == 4
+    assert dk.any_kernel.launches - before[1] == 4
+    with plain_kernels():
+        want = run("plain")
+    assert np.isfinite(img).all() and img.mean() > 0.005
+    close = np.isclose(img, want, atol=1e-5, rtol=1e-4).all(axis=-1)
+    assert close.mean() > 0.995
+    np.testing.assert_allclose(img.mean(), want.mean(), rtol=1e-3)
+
+
 # ---------------------------------------------------------------------------
 # The trace_paths options and the backward pass, through the kernels
 # ---------------------------------------------------------------------------
