@@ -98,7 +98,10 @@ runs the dense closest kernel over the 40-triangle cutout sub-scene).
    EXR, PNG, BMP and checkpoint in a temporary directory): wall, Mrays/s,
    the walk kernels' launches, the seconds of scene load, checkpoint and
    output writes; the EXR read back is the image bit for bit, the PNG and
-   BMP decode to `to_display` of it. hall at 1920x1080, 2 bounces,
+   BMP decode to `to_display` of it; then one 1-spp frame of that config
+   through the kernels equals the plain versions' bit for bit (the walk
+   kernels at the path's 1M-ray wavefronts, the conductor's specular
+   bounces included). hall at 1920x1080, 2 bounces,
    through the CLI: A at 4 spp, B1 at 2 spp with a checkpoint, B2 at 4
    spp resumed from it; B2 equals A bit for bit, and A equals `render` of
    the same 4 frames, whose wall against the CLI's is the front end's
@@ -1620,7 +1623,43 @@ def check_outputs(img, exr, png, bmp, what):
         raise AssertionError(f"{what}: the BMP is not to_display(image)")
 
 
-def config5_cli(tmp, card):
+def config5_frame(cfg, dev):
+    """One 1-spp frame of the config5 path (the CLI's scene, size, bounces
+    and engine) through the kernels, its launches counted, then through
+    the plain versions on the same inputs: bit for bit, so the walk
+    kernels hold at this path's 1M-ray wavefronts, the conductor's
+    specular bounces included. Returns (launches, kernel s, plain s)."""
+    import torch
+    from optixpathtracer_tpu_torch.integrate import path
+    from optixpathtracer_tpu_torch.render import load_scene
+    scene, camera = load_scene(cfg, dev)
+    args = (scene, *camera.raygen_params(cfg.width, cfg.height, dev),
+            cfg.width, cfg.height, 0, cfg.max_bounces, cfg.intersect,
+            cfg.reference_compat)
+    flags = scene_flags(scene)
+    times = []
+    with counted("config5 1-spp frame", WALK) as launches:
+        t0 = time.perf_counter()
+        frame = path.render_sample(*args, **flags)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    with plain_kernels():
+        t0 = time.perf_counter()
+        plain = path.render_sample(*args, **flags)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if not torch.equal(frame, plain):
+        n = int((frame != plain).any(dim=-1).sum())
+        raise AssertionError(f"config5: the kernels' frame differs from the "
+                             f"plain versions' on {n} pixels")
+    log(f"  config5 {cfg.width}x{cfg.height} 1-spp frame, "
+        f"{cfg.max_bounces} bounces: kernels ({times[0]:.3f} s) equal the "
+        f"plain versions ({times[1]:.3f} s) bit for bit; launches "
+        f"{ {k: launches[k] for k in WALK} }")
+    return launches, times[0], times[1]
+
+
+def config5_cli(tmp, dev, card):
     import numpy as np
     from optixpathtracer_tpu_torch.config import RenderConfig
     cfg = RenderConfig.from_json(CONFIG5)
@@ -1646,11 +1685,13 @@ def config5_cli(tmp, card):
         f"{ {k: launches[k] for k in WALK} }; checkpoint + output writes "
         f"{writes:.3f} s ({writes / wall:.1%} of the wall); EXR, PNG and "
         f"BMP hold the image; mean {img.mean():.5f}")
+    frame_launches, frame_s, plain_s = config5_frame(cfg, dev)
     return {"spp": spp, "wall_s": wall, "mrays_per_s": mrays,
             "launches": launches, "load_s": rec["load_s"],
             "checkpoint_s": rec["checkpoint_s"],
             "checkpoints": rec["checkpoints"],
-            "output_s": rec["output_s"]}
+            "output_s": rec["output_s"], "frame_launches": frame_launches,
+            "frame_s": frame_s, "plain_frame_s": plain_s}
 
 
 def hall_cli(tmp, scenes, card):
@@ -1902,6 +1943,7 @@ def frontend_launches(fe):
     """{path: launches} of every front-end run."""
     return {
         "frontend: config5 CLI": fe["config5"]["launches"],
+        "frontend: config5 1-spp frame": fe["config5"]["frame_launches"],
         **{f"frontend: hall CLI {tag}": r["launches"]
            for tag, r in fe["hall_cli"]["runs"].items()},
         "frontend: dist hall sharded": fe["dist"]["launches sharded"],
@@ -1915,7 +1957,7 @@ def frontend_phase(scenes, dev, card, stats):
     import tempfile
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        out["config5"] = config5_cli(tmp, card)
+        out["config5"] = config5_cli(tmp, dev, card)
         out["hall_cli"] = hall_cli(tmp, scenes, card)
     out["dist"] = dist_card(scenes, dev)
     out["preview"] = preview_card(scenes)

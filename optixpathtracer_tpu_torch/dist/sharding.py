@@ -22,10 +22,8 @@ import os
 import torch
 import torch.distributed as dist
 
-from ..camera.camera import generate_rays
-from ..core import rng
 from ..core.math import div
-from ..integrate.path import trace_paths
+from ..integrate.path import render_sample
 
 GRAD_FIELDS = ("mat_albedo", "mat_metallic", "mat_roughness", "mat_ior")
 
@@ -59,36 +57,24 @@ def make_mesh(n_devices: int | None = None, axis: str = "tiles") -> Mesh:
     return Mesh(group, size, rank, axis)
 
 
-def initialize_distributed(init_method: str | None = None,
-                           world_size: int | None = None,
-                           rank: int | None = None,
-                           device="cuda") -> bool:
-    """Join the process group of a multi-process launch: NCCL on "cuda"
+def initialize_distributed(device="cuda") -> bool:
+    """Join the process group of a `torchrun` launch: NCCL on "cuda"
     (after setting this rank's GPU from LOCAL_RANK), gloo on "cpu".
 
-    With no arguments it initialises only where `torchrun`'s environment
-    (RANK, WORLD_SIZE, MASTER_ADDR) says this is one of several
-    processes; a single process is a no-op, as in the reference. Returns
-    True if more than one rank runs."""
+    It initialises only where torchrun's environment (RANK, WORLD_SIZE,
+    MASTER_ADDR) says this is one of several processes; a single process
+    is a no-op, as in the reference. Returns True if more than one rank
+    runs."""
     from ..scene.flatten import _device
     env = os.environ
-    launched = all(env.get(k) for k in ("RANK", "WORLD_SIZE",
-                                        "MASTER_ADDR"))
-    if not (init_method or world_size or launched):
+    if not all(env.get(k) for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR")):
         return False
     device = _device(device)
     if not dist.is_initialized():
-        world_size = int(env["WORLD_SIZE"] if world_size is None
-                         else world_size)
-        rank = int(env["RANK"] if rank is None else rank)
         if device.type == "cuda":
-            local = int(env.get("LOCAL_RANK",
-                                rank % torch.cuda.device_count()))
-            torch.cuda.set_device(local)
-        dist.init_process_group(
-            "nccl" if device.type == "cuda" else "gloo",
-            init_method=init_method or "env://", world_size=world_size,
-            rank=rank)
+            torch.cuda.set_device(int(env.get(
+                "LOCAL_RANK", int(env["RANK"]) % torch.cuda.device_count())))
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
     return dist.get_world_size() > 1
 
 
@@ -100,28 +86,18 @@ def render_rows(scene, cam_position, cam_inv_view, cam_inv_proj,
                 flat_shading: bool = False):
     """Render pixel rows [y0, y0 + h_local) of the full height x width
     frame: [h_local, width, 3], a pure function of (scene, camera,
-    frame_id, y0). It is the per-rank body of `render_sample_sharded` and
-    the lost-shard recovery primitive: any row block is recomputable from
-    its coordinates alone. Rows are offset in float32, as the reference
-    does; it follows autograd as `render_sample` does."""
+    frame_id, y0) (`render_sample`'s row window). It is the per-rank body
+    of `render_sample_sharded` and the lost-shard recovery primitive: any
+    row block is recomputable from its coordinates alone. It follows
+    autograd as `render_sample` does."""
     if active_lobes is None:
         from ..scene.flatten import scene_active_lobes
         active_lobes = scene_active_lobes(scene)
-    dev = cam_inv_proj.device
-    ys_local = torch.arange(h_local, dtype=torch.float32, device=dev)[:, None]
-    xs = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
-    py = (ys_local + torch.tensor(float(y0), dtype=torch.float32,
-                                  device=dev)).expand(h_local, width)
-    px = xs.expand(h_local, width)
-    o, d = generate_rays(cam_position, cam_inv_view, cam_inv_proj,
-                         width, height, px, py)
-    seed = rng.pixel_seed(width, px.to(torch.int64).reshape(-1),
-                          py.to(torch.int64).reshape(-1), int(frame_id))
-    radiance, _ = trace_paths(scene, o.reshape(-1, 3), d.reshape(-1, 3),
-                              seed, max_bounces, intersect_method,
-                              reference_compat, active_lobes, use_textures,
-                              use_alpha_cutout, flat_shading=flat_shading)
-    return radiance.reshape(h_local, width, 3)
+    return render_sample(scene, cam_position, cam_inv_view, cam_inv_proj,
+                         width, height, frame_id, max_bounces,
+                         intersect_method, reference_compat, active_lobes,
+                         use_textures, use_alpha_cutout,
+                         flat_shading=flat_shading, y0=y0, h_local=h_local)
 
 
 def gather_rows(mesh: Mesh, rows):

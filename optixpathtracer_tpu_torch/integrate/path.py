@@ -428,27 +428,33 @@ def render_sample(scene, cam_position, cam_inv_view, cam_inv_proj,
                   sort_rays: bool | None = None,
                   flat_shading: bool = False,
                   compact_shading: int = 0,
-                  material_sort: int = 0):
+                  material_sort: int = 0,
+                  y0=0, h_local: int | None = None):
     """Render one 1-spp frame: [H, W, 3] linear radiance (row 0 = bottom,
-    GL convention like the reference framebuffer). It follows autograd: a
-    scene field that requires grad gets its gradient (`diff/`); with none,
-    no graph is recorded."""
+    GL convention like the reference framebuffer). With `h_local`, only
+    the pixel rows [y0, y0 + h_local) of the height x width frame:
+    [h_local, W, 3], each pixel as in the full frame (rows are offset in
+    float32, as the reference's `render_rows` does; `dist/` shards rows
+    this way). It follows autograd: a scene field that requires grad gets
+    its gradient (`diff/`); with none, no graph is recorded."""
+    if h_local is None:
+        h_local = height
+    dev = cam_inv_proj.device
+    ys = torch.arange(h_local, dtype=torch.float32, device=dev)[:, None]
+    py = (ys + torch.tensor(float(y0), dtype=torch.float32, device=dev)
+          ).expand(h_local, width)
+    px = torch.arange(width, dtype=torch.float32,
+                      device=dev)[None, :].expand(h_local, width)
     o, d = generate_rays(cam_position, cam_inv_view, cam_inv_proj,
-                         width, height)
-    o = o.reshape(-1, 3)
-    d = d.reshape(-1, 3)
-    dev = o.device
-    ys, xs = torch.meshgrid(torch.arange(height, device=dev),
-                            torch.arange(width, device=dev), indexing="ij")
-    seed = rng.pixel_seed(width, xs.reshape(-1), ys.reshape(-1),
-                          int(frame_id))
-    radiance, _ = trace_paths(scene, o, d, seed, max_bounces,
-                              intersect_method, reference_compat,
-                              active_lobes, use_textures,
-                              use_alpha_cutout, debug_pixel,
-                              sort_rays, flat_shading, compact_shading,
-                              material_sort)
-    return radiance.reshape(height, width, 3)
+                         width, height, px, py)
+    seed = rng.pixel_seed(width, px.to(torch.int64).reshape(-1),
+                          py.to(torch.int64).reshape(-1), int(frame_id))
+    radiance, _ = trace_paths(scene, o.reshape(-1, 3), d.reshape(-1, 3),
+                              seed, max_bounces, intersect_method,
+                              reference_compat, active_lobes, use_textures,
+                              use_alpha_cutout, debug_pixel, sort_rays,
+                              flat_shading, compact_shading, material_sort)
+    return radiance.reshape(h_local, width, 3)
 
 
 @torch.no_grad()
@@ -460,9 +466,11 @@ def render_chunk(scene, cam_position, cam_inv_view, cam_inv_proj,
                  active_lobes=dispatch.ALL_LOBES, use_textures: bool = True,
                  use_alpha_cutout: bool = False,
                  sort_rays: bool | None = None, flat_shading: bool = False,
-                 material_sort: int = 0):
+                 material_sort: int = 0, y0=0):
     """Accumulate `chunk` consecutive 1-spp frames into the running mean,
-    with the reference's recurrence acc + (frame - acc) / (s + 1)."""
+    with the reference's recurrence acc + (frame - acc) / (s + 1). The
+    accumulator may hold only the rows [y0, y0 + accum rows) of the
+    frame (`render_sample`'s row window)."""
     for i in range(chunk):
         s = start_frame + i
         frame = render_sample(scene, cam_position, cam_inv_view,
@@ -470,7 +478,8 @@ def render_chunk(scene, cam_position, cam_inv_view, cam_inv_proj,
                               intersect_method, reference_compat,
                               active_lobes, use_textures, use_alpha_cutout,
                               sort_rays=sort_rays, flat_shading=flat_shading,
-                              material_sort=material_sort)
+                              material_sort=material_sort, y0=y0,
+                              h_local=accum.shape[0])
         count = torch.tensor(s, dtype=torch.float32, device=accum.device)
         accum = accum + (frame - accum) / (count + 1.0)
     return accum

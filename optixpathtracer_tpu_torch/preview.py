@@ -1,6 +1,6 @@
 """Interactive progressive preview: browser viewport + fly camera (port of
 `optixpathtracer_tpu/preview.py`, rendering with the port's
-`render_sample` on the scene's device).
+`render_chunk` on the scene's device, one frame at a time).
 
 The replacement for the reference's OpenGL window + GLFW input layer
 (`source/Renderer/{OpenGLWindow,OptixView}.cpp`, SURVEY.md L6/L7): instead
@@ -190,7 +190,7 @@ def run_preview(scene, camera, width=256, height=256, max_bounces=2,
     """Serve the interactive preview; blocks until interrupted (or
     max_seconds). Returns the final accumulated image."""
     from .integrate.cutout import scene_uses_alpha_cutout
-    from .integrate.path import render_sample
+    from .integrate.path import render_chunk
     from .scene.flatten import (scene_active_lobes, scene_flat_shading,
                                 scene_uses_textures)
 
@@ -227,14 +227,10 @@ def run_preview(scene, camera, width=256, height=256, max_bounces=2,
                 pos, iv, ip = state.camera.raygen_params(width, height,
                                                          device)
                 s = state.samples
-            with torch.no_grad():
-                frame = render_sample(scene, pos, iv, ip, width, height, s,
-                                      max_bounces, intersect_method,
-                                      reference_compat, lobes, use_tex,
-                                      use_alpha_cutout=use_cutout,
-                                      flat_shading=flat)
-                count = torch.tensor(s, dtype=torch.float32, device=device)
-                accum = accum + (frame - accum) / (count + 1.0)
+            accum = render_chunk(scene, pos, iv, ip, width, height, accum,
+                                 s, 1, max_bounces, intersect_method,
+                                 reference_compat, lobes, use_tex,
+                                 use_cutout, flat_shading=flat)
             png = _encode_png(accum)
             now = time.time()
             with state.lock:

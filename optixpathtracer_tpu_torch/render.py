@@ -19,7 +19,7 @@ import torch.distributed
 
 from .camera import Camera
 from .config import RenderConfig
-from .dist import gather_rows, make_mesh, render_rows
+from .dist import gather_rows, make_mesh
 from .film import write_bmp, write_exr, write_png
 from .integrate.cutout import scene_uses_alpha_cutout
 from .integrate.path import render_chunk
@@ -65,23 +65,6 @@ def load_checkpoint(path, device="cuda"):
             int(data["next_frame"]))
 
 
-@torch.no_grad()
-def _rows_chunk(scene, pos, inv_view, inv_proj, cfg, accum, start, chunk,
-                y0, flags):
-    """render_chunk's recurrence over this rank's rows."""
-    for i in range(chunk):
-        s = start + i
-        frame = render_rows(scene, pos, inv_view, inv_proj, cfg.width,
-                            cfg.height, s, y0, accum.shape[0],
-                            cfg.max_bounces, cfg.intersect,
-                            flags["active_lobes"], cfg.reference_compat,
-                            flags["use_textures"], flags["use_alpha_cutout"],
-                            flags["flat_shading"])
-        count = torch.tensor(s, dtype=torch.float32, device=accum.device)
-        accum = accum + (frame - accum) / (count + 1.0)
-    return accum
-
-
 def render_config(cfg: RenderConfig, scene=None, camera=None, device="cuda"):
     """Run a full progressive render per the config on `device` (the GPU
     unless the caller asks for the CPU; a given scene must lie there).
@@ -125,6 +108,12 @@ def render_config(cfg: RenderConfig, scene=None, camera=None, device="cuda"):
     start = 0
     if cfg.checkpoint and os.path.exists(cfg.checkpoint):
         full, start = load_checkpoint(cfg.checkpoint, device)
+        if full.shape != (cfg.height, cfg.width, 3):
+            raise ValueError(
+                f"checkpoint {cfg.checkpoint} holds a "
+                f"{'x'.join(map(str, full.shape))} accumulator; this render "
+                f"is {cfg.height}x{cfg.width}x3 (give another --checkpoint "
+                f"or remove it)")
         accum = full[y0:y0 + h_local].contiguous()
         if lead:
             print(f"resumed from {cfg.checkpoint} at sample {start}")
@@ -141,14 +130,10 @@ def render_config(cfg: RenderConfig, scene=None, camera=None, device="cuda"):
         if cfg.checkpoint:  # stop at the next checkpoint boundary
             to_ckpt = cfg.checkpoint_every - s % cfg.checkpoint_every
             chunk = min(chunk, to_ckpt)
-        if mesh is None:
-            accum = render_chunk(scene, pos, inv_view, inv_proj, cfg.width,
-                                 cfg.height, accum, s, chunk,
-                                 cfg.max_bounces, cfg.intersect,
-                                 cfg.reference_compat, **flags)
-        else:
-            accum = _rows_chunk(scene, pos, inv_view, inv_proj, cfg, accum,
-                                s, chunk, y0, flags)
+        accum = render_chunk(scene, pos, inv_view, inv_proj, cfg.width,
+                             cfg.height, accum, s, chunk, cfg.max_bounces,
+                             cfg.intersect, cfg.reference_compat, **flags,
+                             y0=y0)
         s += chunk
         if lead and cfg.log_every and (s % cfg.log_every < chunk
                                        or s == cfg.spp):

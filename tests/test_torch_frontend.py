@@ -33,6 +33,7 @@ from optixpathtracer_tpu.scene.procedural import PRESETS as JPRESETS
 from optixpathtracer_tpu_torch import cli
 from optixpathtracer_tpu_torch.config import RenderConfig
 from optixpathtracer_tpu_torch.film import read_exr, to_display
+from optixpathtracer_tpu_torch.integrate.path import render_chunk
 from optixpathtracer_tpu_torch.render import (load_checkpoint, load_scene,
                                               render_config,
                                               save_checkpoint)
@@ -141,6 +142,35 @@ def test_checkpoint_round_trip(tmp_path):
     assert n == 7 and back.dtype == torch.float32
     np.testing.assert_array_equal(back.numpy(), accum.numpy())
     assert not os.path.exists(p + ".tmp.npz")
+
+
+def test_resume_rejects_a_checkpoint_of_another_size(cornell, tmp_path):
+    """A checkpoint of another frame size raises before any rendering,
+    naming both sizes, and is left as it was."""
+    scene, camera = cornell
+    ckpt = str(tmp_path / "small.npz")
+    save_checkpoint(ckpt, torch.zeros((8, 8, 3)), 2)
+    with pytest.raises(ValueError, match="8x8x3 accumulator; this render "
+                                         "is 16x16x3"):
+        render_config(_cfg(checkpoint=ckpt), scene, camera, device="cpu")
+    accum, next_frame = load_checkpoint(ckpt, device="cpu")
+    assert accum.shape == (8, 8, 3) and next_frame == 2
+
+
+@pytest.mark.parametrize("y0, rows", [(0, 16), (0, 5), (11, 5)])
+def test_render_chunk_row_window(cornell, y0, rows):
+    """render_chunk over a row window (what each rank of a sharded
+    render_config accumulates) equals those rows of the full frame's
+    accumulation bit for bit."""
+    scene, camera = cornell
+    params = camera.raygen_params(16, 16, device="cpu")
+    full = render_chunk(scene, *params, 16, 16,
+                        torch.zeros((16, 16, 3)), 1, 2, 2,
+                        active_lobes=(0,))
+    got = render_chunk(scene, *params, 16, 16,
+                       torch.zeros((rows, 16, 3)), 1, 2, 2,
+                       active_lobes=(0,), y0=y0)
+    np.testing.assert_array_equal(got.numpy(), full[y0:y0 + rows].numpy())
 
 
 def test_cli_writes_all_three_files(tmp_path, capsys):
