@@ -38,6 +38,9 @@ front end.
               rendering (`render_config`), the command line
               (`python -m optixpathtracer_tpu_torch.cli`), the browser
               preview; scene/gltf.py loads and writes glTF
+  spans.py    the `tracer.*` layer spans (frame, bounce, intersection
+              stages, shading, BSDF), open only while a torch.profiler
+              records
 
 Entry points build on the GPU unless the caller asks for the CPU
 (`device="cpu"`, `--device cpu`), and raise where there is no GPU.

@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import spans
 from ..core import rng
 from . import conductor as _conductor
 from . import dielectric as _dielectric
@@ -83,6 +84,7 @@ def _gated(gates, lobe, seed, eval_fn, zero_fn):
     return seed, zero_fn()
 
 
+@spans.traced(spans.BSDF_F)
 def f(seed, mat: MaterialParams, wo, wi, active_lobes=ALL_LOBES,
       gates=None):
     """Evaluate the BSDF for every lane (resolved types only: call
@@ -127,6 +129,7 @@ def f(seed, mat: MaterialParams, wo, wi, active_lobes=ALL_LOBES,
     return seed, out
 
 
+@spans.traced(spans.BSDF_SAMPLE)
 def sample(seed, mat: MaterialParams, wo, active_lobes=ALL_LOBES,
            gates=None):
     """Importance-sample the BSDF per lane. Returns (seed, BSDFSample).

@@ -61,7 +61,9 @@ def build_parser():
                    help="auto-stop the preview after N seconds")
     p.add_argument("--profile", metavar="DIR",
                    help="write a torch.profiler Chrome trace of the render "
-                        "to DIR")
+                        "to DIR/trace.json; it carries the port's tracer.* "
+                        "layer spans (frame, bounce, intersection stages, "
+                        "shading, BSDF) beside the kernels")
     return p
 
 

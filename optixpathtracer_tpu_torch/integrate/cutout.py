@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import spans
 from ..intersect import intersect_any, intersect_closest
 from ..intersect.api import _refine
 from ..intersect.types import Hit
@@ -89,20 +90,21 @@ def intersect_closest_cutout(scene, o, d, tmin=0.0, tmax=100.0,
         # the deepest cut hit: an exhausted chain occludes there
         last_cut_t = torch.full((r,), float("inf"), device=dev)
         last_cut_id = torch.full((r,), -1, dtype=torch.int32, device=dev)
-        for _ in range(MAX_CUTOUT_LAYERS + 1):
-            if not bool(open_.any()):
-                break
-            lane_tmax = torch.where(open_, sub_bound, -1.0)
-            h = intersect_closest(sub, o, d, cur_tmin, lane_tmax,
-                                  method=method)
-            solid = h.hit & (_hit_alpha(sub, h) >= ALPHA_THRESHOLD)
-            take = open_ & solid
-            best_t = torch.where(take, h.t, best_t)
-            best_id = torch.where(take, h.tri_id, best_id)
-            open_ = open_ & h.hit & ~solid
-            cur_tmin = torch.where(open_, h.t + REENTRY_EPS, cur_tmin)
-            last_cut_t = torch.where(open_ & h.hit, h.t, last_cut_t)
-            last_cut_id = torch.where(open_ & h.hit, h.tri_id, last_cut_id)
+        with spans.span(spans.CUTOUT):
+            for _ in range(MAX_CUTOUT_LAYERS + 1):
+                if not bool(open_.any()):
+                    break
+                lane_tmax = torch.where(open_, sub_bound, -1.0)
+                h = intersect_closest(sub, o, d, cur_tmin, lane_tmax,
+                                      method=method)
+                solid = h.hit & (_hit_alpha(sub, h) >= ALPHA_THRESHOLD)
+                take = open_ & solid
+                best_t = torch.where(take, h.t, best_t)
+                best_id = torch.where(take, h.tri_id, best_id)
+                open_ = open_ & h.hit & ~solid
+                cur_tmin = torch.where(open_, h.t + REENTRY_EPS, cur_tmin)
+                last_cut_t = torch.where(open_ & h.hit, h.t, last_cut_t)
+                last_cut_id = torch.where(open_ & h.hit, h.tri_id, last_cut_id)
         exhausted = open_ & (last_cut_id >= 0)
         best_t = torch.where(exhausted, last_cut_t, best_t)
         best_id = torch.where(exhausted, last_cut_id, best_id)
@@ -126,18 +128,20 @@ def intersect_closest_cutout(scene, o, d, tmin=0.0, tmax=100.0,
         return _refine(scene, o, d, raw, tmax_b)
 
     best = intersect_closest(scene, o, d, tmin, tmax_b, method=method)
-    for _ in range(MAX_CUTOUT_LAYERS):
-        cut = best.hit & (_hit_alpha(scene, best) < ALPHA_THRESHOLD)
-        if not bool(cut.any()):
-            break
-        new_tmin = torch.where(cut, best.t + REENTRY_EPS, tmin)
-        lane_tmax = torch.where(cut, tmax_b, -1.0)
-        again = intersect_closest(scene, o, d, new_tmin, lane_tmax,
-                                  method=method)
-        best = Hit(*[torch.where(cut, a, b) for a, b in zip(again, best)])
+    with spans.span(spans.CUTOUT):
+        for _ in range(MAX_CUTOUT_LAYERS):
+            cut = best.hit & (_hit_alpha(scene, best) < ALPHA_THRESHOLD)
+            if not bool(cut.any()):
+                break
+            new_tmin = torch.where(cut, best.t + REENTRY_EPS, tmin)
+            lane_tmax = torch.where(cut, tmax_b, -1.0)
+            again = intersect_closest(scene, o, d, new_tmin, lane_tmax,
+                                      method=method)
+            best = Hit(*[torch.where(cut, a, b) for a, b in zip(again, best)])
     return best
 
 
+@spans.traced(spans.CUTOUT)
 def _any_cutout_chain(scene, o, d, tmin, tmax_b, gate0, method):
     """The closest-hit cutout chain over `scene`: a ray is blocked only by
     a hit whose alpha passes the threshold, and re-enters behind cutout

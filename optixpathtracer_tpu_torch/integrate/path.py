@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import spans
 from ..bsdf import dispatch
 from ..camera.camera import generate_rays
 from ..core import rng
@@ -159,6 +160,7 @@ def _light_query(seed, scene, surf, alive, intersect_method,
                   p_light)
 
 
+@spans.traced(spans.NEE)
 def _nee(seed, scene, surf, beta, alive, intersect_method, active_lobes,
          use_alpha_cutout=False):
     """Direct light from one uniformly picked point light
@@ -179,6 +181,7 @@ def _nee(seed, scene, surf, beta, alive, intersect_method, active_lobes,
     return seed, torch.where(visible[..., None], contrib, 0.0)
 
 
+@spans.traced(spans.NEE)
 def _nee_geom(seed, scene, surf, alive, intersect_method,
               use_alpha_cutout):
     """The material-independent half of _nee: light pick, shadow query,
@@ -193,6 +196,7 @@ def _nee_geom(seed, scene, surf, alive, intersect_method,
     return seed, (wl_local, visible, lrad)
 
 
+@spans.traced(spans.ADVANCE)
 def _advance(surf, o, d, beta, alive, bs):
     """Throughput and ray update from a BSDF sample. Returns (beta, o, d,
     alive)."""
@@ -236,6 +240,7 @@ def _shade_mat_segment(seed, surf, o, d, beta, alive, nee, gates,
 N_MAT_BUCKETS = 6  # 5 material types + dead lanes
 
 
+@spans.traced(spans.SHADE)
 def _shade_wave_material_sorted(scene, o, d, seed, hit, beta, alive,
                                 radiance, pix, n_seg,
                                 reference_compat, use_textures,
@@ -278,6 +283,7 @@ def _shade_wave_material_sorted(scene, o, d, seed, hit, beta, alive,
     return seed, radiance, beta, o, d, alive, pix
 
 
+@spans.traced(spans.SHADE)
 def _shade_wave(scene, o, d, seed, hit, beta, alive, radiance,
                 reference_compat, use_textures, flat_shading,
                 intersect_method, active_lobes, use_alpha_cutout):
@@ -345,67 +351,72 @@ def trace_paths(scene, o, d, seed, max_bounces: int,
     pix = torch.arange(r, device=o.device)
 
     for bounce in range(max_bounces):
-        if sort_rays and bounce and debug_pixel is None:
-            if sort_rays == "morton":
-                perm = torch.argsort(_coherence_sort_key(scene, o, d, alive),
-                                     stable=True)
+        with spans.span(spans.BOUNCE):
+            if sort_rays and bounce and debug_pixel is None:
+                if sort_rays == "morton":
+                    perm = torch.argsort(
+                        _coherence_sort_key(scene, o, d, alive), stable=True)
+                else:
+                    perm = _bucket_permutation(scene, o, d, alive)
+                o, d, seed, beta, radiance, alive, pix = _index(
+                    (o, d, seed, beta, radiance, alive, pix), perm)
+            # Dead lanes trace with tmax = -1: they cannot hit anything, and
+            # the dense kernels skip them.
+            ray_tmax = (torch.where(alive, RAY_TMAX, -1.0) if bounce
+                        else RAY_TMAX)
+            # Secondary bounces carry the "auto:bounce" routing hint.
+            closest_method = ("auto:bounce" if bounce
+                              and intersect_method == "auto"
+                              else intersect_method)
+            if use_alpha_cutout:
+                hit = intersect_closest_cutout(scene, o, d, 0.0, ray_tmax,
+                                               method=closest_method)
             else:
-                perm = _bucket_permutation(scene, o, d, alive)
-            o, d, seed, beta, radiance, alive, pix = _index(
-                (o, d, seed, beta, radiance, alive, pix), perm)
-        # Dead lanes trace with tmax = -1: they cannot hit anything, and
-        # the dense kernels skip them.
-        ray_tmax = (torch.where(alive, RAY_TMAX, -1.0) if bounce
-                    else RAY_TMAX)
-        # Secondary bounces carry the "auto:bounce" routing hint.
-        closest_method = ("auto:bounce" if bounce
-                          and intersect_method == "auto"
-                          else intersect_method)
-        if use_alpha_cutout:
-            hit = intersect_closest_cutout(scene, o, d, 0.0, ray_tmax,
-                                           method=closest_method)
-        else:
-            hit = intersect_closest(scene, o, d, 0.0, ray_tmax,
-                                    method=closest_method)
-        # miss -> background is black; the path dies with radiance unchanged
-        alive = alive & hit.hit
+                hit = intersect_closest(scene, o, d, 0.0, ray_tmax,
+                                        method=closest_method)
+            # miss -> background is black; the path dies with radiance
+            # unchanged
+            alive = alive & hit.hit
 
-        if debug_pixel is not None:
-            _, surf = make_surface(seed, scene, o, d, hit,
-                                   reference_compat=reference_compat,
-                                   use_textures=use_textures,
-                                   flat_shading=flat_shading)
-            _debug_print(bounce, surf, alive, debug_pixel)
+            if debug_pixel is not None:
+                _, surf = make_surface(seed, scene, o, d, hit,
+                                       reference_compat=reference_compat,
+                                       use_textures=use_textures,
+                                       flat_shading=flat_shading)
+                _debug_print(bounce, surf, alive, debug_pixel)
 
-        # the NEE shadow query inherits the bounce hint too
-        shade_args = (reference_compat, use_textures, flat_shading,
-                      closest_method, active_lobes, use_alpha_cutout)
-        if material_sort and debug_pixel is None and r % material_sort == 0:
-            (seed, radiance, beta, o, d, alive,
-             pix) = _shade_wave_material_sorted(
-                scene, o, d, seed, hit, beta, alive, radiance, pix,
-                material_sort, *shade_args)
-        elif compact_shading and bounce and debug_pixel is None \
-                and r % compact_shading == 0:
-            # dead lanes sort last, so trailing segments skip the whole
-            # shading stage; one copy to the host for every segment
-            size = r // compact_shading
-            pieces = []
-            live = alive.reshape(compact_shading, size).any(dim=1).tolist()
-            for si, any_live in enumerate(live):
-                sl = slice(si * size, (si + 1) * size)
-                carry = (seed[sl], radiance[sl], beta[sl], o[sl], d[sl],
-                         alive[sl])
-                if any_live:
-                    carry = _shade_wave(scene, o[sl], d[sl], seed[sl],
-                                        Hit(*[f[sl] for f in hit]), beta[sl],
-                                        alive[sl], radiance[sl], *shade_args)
-                pieces.append(carry)
-            seed, radiance, beta, o, d, alive = (
-                torch.cat([p[k] for p in pieces]) for k in range(6))
-        else:
-            seed, radiance, beta, o, d, alive = _shade_wave(
-                scene, o, d, seed, hit, beta, alive, radiance, *shade_args)
+            # the NEE shadow query inherits the bounce hint too
+            shade_args = (reference_compat, use_textures, flat_shading,
+                          closest_method, active_lobes, use_alpha_cutout)
+            if material_sort and debug_pixel is None \
+                    and r % material_sort == 0:
+                (seed, radiance, beta, o, d, alive,
+                 pix) = _shade_wave_material_sorted(
+                    scene, o, d, seed, hit, beta, alive, radiance, pix,
+                    material_sort, *shade_args)
+            elif compact_shading and bounce and debug_pixel is None \
+                    and r % compact_shading == 0:
+                # dead lanes sort last, so trailing segments skip the whole
+                # shading stage; one copy to the host for every segment
+                size = r // compact_shading
+                pieces = []
+                live = alive.reshape(compact_shading,
+                                     size).any(dim=1).tolist()
+                for si, any_live in enumerate(live):
+                    sl = slice(si * size, (si + 1) * size)
+                    carry = (seed[sl], radiance[sl], beta[sl], o[sl], d[sl],
+                             alive[sl])
+                    if any_live:
+                        carry = _shade_wave(
+                            scene, o[sl], d[sl], seed[sl],
+                            Hit(*[f[sl] for f in hit]), beta[sl], alive[sl],
+                            radiance[sl], *shade_args)
+                    pieces.append(carry)
+                seed, radiance, beta, o, d, alive = (
+                    torch.cat([p[k] for p in pieces]) for k in range(6))
+            else:
+                seed, radiance, beta, o, d, alive = _shade_wave(
+                    scene, o, d, seed, hit, beta, alive, radiance, *shade_args)
 
     sorted_any = ((sort_rays and max_bounces > 1)
                   or (material_sort and r % material_sort == 0))
@@ -440,15 +451,16 @@ def render_sample(scene, cam_position, cam_inv_view, cam_inv_proj,
     if h_local is None:
         h_local = height
     dev = cam_inv_proj.device
-    ys = torch.arange(h_local, dtype=torch.float32, device=dev)[:, None]
-    py = (ys + torch.tensor(float(y0), dtype=torch.float32, device=dev)
-          ).expand(h_local, width)
-    px = torch.arange(width, dtype=torch.float32,
-                      device=dev)[None, :].expand(h_local, width)
-    o, d = generate_rays(cam_position, cam_inv_view, cam_inv_proj,
-                         width, height, px, py)
-    seed = rng.pixel_seed(width, px.to(torch.int64).reshape(-1),
-                          py.to(torch.int64).reshape(-1), int(frame_id))
+    with spans.span(spans.RAYGEN):
+        ys = torch.arange(h_local, dtype=torch.float32, device=dev)[:, None]
+        py = (ys + torch.tensor(float(y0), dtype=torch.float32, device=dev)
+              ).expand(h_local, width)
+        px = torch.arange(width, dtype=torch.float32,
+                          device=dev)[None, :].expand(h_local, width)
+        o, d = generate_rays(cam_position, cam_inv_view, cam_inv_proj,
+                             width, height, px, py)
+        seed = rng.pixel_seed(width, px.to(torch.int64).reshape(-1),
+                              py.to(torch.int64).reshape(-1), int(frame_id))
     radiance, _ = trace_paths(scene, o.reshape(-1, 3), d.reshape(-1, 3),
                               seed, max_bounces, intersect_method,
                               reference_compat, active_lobes, use_textures,
@@ -471,17 +483,16 @@ def render_chunk(scene, cam_position, cam_inv_view, cam_inv_proj,
     with the reference's recurrence acc + (frame - acc) / (s + 1). The
     accumulator may hold only the rows [y0, y0 + accum rows) of the
     frame (`render_sample`'s row window)."""
-    for i in range(chunk):
-        s = start_frame + i
-        frame = render_sample(scene, cam_position, cam_inv_view,
-                              cam_inv_proj, width, height, s, max_bounces,
-                              intersect_method, reference_compat,
-                              active_lobes, use_textures, use_alpha_cutout,
-                              sort_rays=sort_rays, flat_shading=flat_shading,
-                              material_sort=material_sort, y0=y0,
-                              h_local=accum.shape[0])
-        count = torch.tensor(s, dtype=torch.float32, device=accum.device)
-        accum = accum + (frame - accum) / (count + 1.0)
+    for s in range(start_frame, start_frame + chunk):
+        with spans.span(spans.FRAME):
+            frame = render_sample(
+                scene, cam_position, cam_inv_view, cam_inv_proj, width,
+                height, s, max_bounces, intersect_method, reference_compat,
+                active_lobes, use_textures, use_alpha_cutout,
+                sort_rays=sort_rays, flat_shading=flat_shading,
+                material_sort=material_sort, y0=y0, h_local=accum.shape[0])
+            count = torch.tensor(s, dtype=torch.float32, device=accum.device)
+            accum = accum + (frame - accum) / (count + 1.0)
     return accum
 
 
@@ -531,12 +542,14 @@ def render(scene, camera, width: int, height: int, spp: int,
         return accum
 
     for s in range(start_frame, start_frame + spp):
-        frame = render_sample(scene, pos, inv_view, inv_proj, width, height,
-                              s, max_bounces, intersect_method,
-                              reference_compat, active_lobes, use_textures,
-                              use_alpha_cutout, flat_shading=flat_shading)
-        # running mean: mix(prev, new, 1/(s+1))
-        accum = accum + (frame - accum) * (1.0 / (s + 1))
+        with spans.span(spans.FRAME):
+            frame = render_sample(scene, pos, inv_view, inv_proj, width,
+                                  height, s, max_bounces, intersect_method,
+                                  reference_compat, active_lobes,
+                                  use_textures, use_alpha_cutout,
+                                  flat_shading=flat_shading)
+            # running mean: mix(prev, new, 1/(s+1))
+            accum = accum + (frame - accum) * (1.0 / (s + 1))
         if callback is not None:
             callback(s, accum)
     return accum

@@ -10,6 +10,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import spans
 from ..bsdf.dispatch import MaterialParams, resolve_stochastic_lobe
 from ..core.math import (build_tangent_space, cross, dot, normalize,
                          to_local, to_world)
@@ -34,6 +35,7 @@ class Surface(NamedTuple):
         return to_local(self.tangent, self.bitangent, self.s_normal, v_world)
 
 
+@spans.traced(spans.SURFACE)
 def make_surface(seed, scene, o, d, hit, reference_compat: bool = False,
                  use_textures: bool = True, flat_shading: bool = False):
     """Build the shading context for every lane (misses produce values that

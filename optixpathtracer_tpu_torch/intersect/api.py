@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import spans
 from ..core.math import cross, dot
 from . import (brute, bvh_traverse, dense_kernels, packet_kernels,
                walk_kernels)
@@ -61,6 +62,7 @@ def _engine(method: str):
     raise ValueError(f"unknown intersect method {method!r}")
 
 
+@spans.traced(spans.ISECT_REFINE)
 def _refine(scene, o, d, hit: Hit, tmax):
     """Recompute (t, u, v, back_face) from the detached tri_id with
     differentiable operations."""
@@ -96,6 +98,7 @@ def _bound(x, device):
     return torch.tensor(x, dtype=torch.float32, device=device)
 
 
+@spans.traced(spans.ISECT_CLOSEST)
 def intersect_closest(scene, o, d, tmin=0.0, tmax=100.0, method="auto"):
     """Closest-hit query with differentiable refinement. method in
     {'auto', 'auto:bounce', 'brute', 'bvh', 'pallas', 'walk', 'packet'}."""
@@ -109,6 +112,7 @@ def intersect_closest(scene, o, d, tmin=0.0, tmax=100.0, method="auto"):
     return _refine(scene, o, d, raw, tmax_arr)
 
 
+@spans.traced(spans.ISECT_ANY)
 def intersect_any(scene, o, d, tmin=0.0, tmax=100.0, method="auto"):
     """Occlusion query (boolean, non-differentiable by design). Every input
     is detached, tmin/tmax included."""

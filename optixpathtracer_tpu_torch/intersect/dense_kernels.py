@@ -30,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import _build
+from .. import _build, spans
 from .types import Hit
 
 TRI_CHUNK = 128      # triangles per chunk == culling cluster
@@ -395,16 +395,19 @@ def _require_cpu(o):
 def intersect_closest_raw(scene, o, d, tmin=0.0, tmax=100.0):
     """(t, tri_id) per ray; t = BIG and id = -1 on a miss."""
     tris, boxes, n_live = dense_arrays(scene)
-    rays = _rays(o, d, tmin, tmax)
-    if rays[0].is_cuda:
-        return closest_kernel(tris, boxes, n_live, *rays)
-    _require_cpu(rays[0])
-    return closest_plain(tris, *rays)
+    with spans.span(spans.ISECT_ORDER):
+        rays = _rays(o, d, tmin, tmax)
+    with spans.span(spans.ISECT_KERNEL):
+        if rays[0].is_cuda:
+            return closest_kernel(tris, boxes, n_live, *rays)
+        _require_cpu(rays[0])
+        return closest_plain(tris, *rays)
 
 
-def intersect_closest(scene, o, d, tmin=0.0, tmax=100.0):
-    """Hit record; ids of padding triangles are rejected as misses."""
-    best_t, best_id = intersect_closest_raw(scene, o, d, tmin, tmax)
+@spans.traced(spans.ISECT_UNSORT)
+def _hit_record(scene, o, best_t, best_id, tmax):
+    """The Hit of raw (t, id): ids of padding triangles (dense, walk or
+    flat padding) are misses, and misses report tmax."""
     n_real = scene.tri_valid.shape[0]
     valid = ((best_id >= 0) & (best_id < n_real)
              & scene.tri_valid[best_id.clamp(0, n_real - 1).long()])
@@ -417,11 +420,19 @@ def intersect_closest(scene, o, d, tmin=0.0, tmax=100.0):
                back_face=torch.zeros_like(valid))
 
 
+def intersect_closest(scene, o, d, tmin=0.0, tmax=100.0):
+    """Hit record; ids of padding triangles are rejected as misses."""
+    best_t, best_id = intersect_closest_raw(scene, o, d, tmin, tmax)
+    return _hit_record(scene, o, best_t, best_id, tmax)
+
+
 def intersect_any(scene, o, d, tmin=0.0, tmax=100.0):
     """True where some triangle blocks the segment (tmin, tmax)."""
     tris, boxes, n_live = dense_arrays(scene)
-    rays = _rays(o, d, tmin, tmax)
-    if rays[0].is_cuda:
-        return any_kernel(tris, boxes, n_live, *rays)
-    _require_cpu(rays[0])
-    return any_plain(tris, *rays)
+    with spans.span(spans.ISECT_ORDER):
+        rays = _rays(o, d, tmin, tmax)
+    with spans.span(spans.ISECT_KERNEL):
+        if rays[0].is_cuda:
+            return any_kernel(tris, boxes, n_live, *rays)
+        _require_cpu(rays[0])
+        return any_plain(tris, *rays)

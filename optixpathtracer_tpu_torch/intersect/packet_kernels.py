@@ -40,11 +40,11 @@ import math
 
 import torch
 
-from .. import _build
-from .dense_kernels import BIG, _mt_plain
+from .. import _build, spans
+from .dense_kernels import BIG, _hit_record, _mt_plain
 from .walk_kernels import (PLAIN_ELEMS, _blocked, _call, _check_cuda,
-                           _hit_record, _n_blocks, _ray_specs, _safe_inv,
-                           _sorted_query, _unsort)
+                           _n_blocks, _ray_specs, _safe_inv, _sorted_query,
+                           _unsort)
 
 PACKET = 8           # rays per packet
 SUB = 128            # triangles per subchunk
@@ -382,10 +382,11 @@ def intersect_closest_raw(scene, o, d, tmin=0.0, tmax=100.0,
         scene, o, d, tmin, tmax, block_rays)
     args = (scene.walk_tris, scene.walk_sub_box, cand, tnear, count, *rays,
             block_rays)
-    if rays[0].is_cuda:
-        t, tri_id = packet_closest_kernel(*args)
-    else:
-        t, tri_id = plain_launch(packet_closest_plain, *args)
+    with spans.span(spans.ISECT_KERNEL):
+        if rays[0].is_cuda:
+            t, tri_id = packet_closest_kernel(*args)
+        else:
+            t, tri_id = plain_launch(packet_closest_plain, *args)
     return _unsort(perm, t), _unsort(perm, tri_id)
 
 
@@ -403,8 +404,9 @@ def intersect_any(scene, o, d, tmin=0.0, tmax=100.0, block_rays=BLOCK_RAYS):
         scene, o, d, tmin, tmax, block_rays)
     args = (scene.walk_tris, scene.walk_sub_box, cand, tnear, count, *rays,
             block_rays)
-    if rays[0].is_cuda:
-        blocked = packet_any_kernel(*args)
-    else:
-        blocked = plain_launch(packet_any_plain, *args)
+    with spans.span(spans.ISECT_KERNEL):
+        if rays[0].is_cuda:
+            blocked = packet_any_kernel(*args)
+        else:
+            blocked = plain_launch(packet_any_plain, *args)
     return _unsort(perm, blocked)

@@ -35,10 +35,10 @@ import ctypes
 
 import torch
 
-from .. import _build
-from .dense_kernels import (BIG, NeededWork, _exit_counts, _mt_hit,
-                            _mt_terms, _rays, _safe_inv, _slab_plain)
-from .types import Hit
+from .. import _build, spans
+from .dense_kernels import (BIG, NeededWork, _exit_counts, _hit_record,
+                            _mt_hit, _mt_terms, _rays, _safe_inv,
+                            _slab_plain)
 
 LANES = 128          # candidate rows are padded to a multiple of this
 BLOCK_RAYS = 256     # rays per block (one CUDA block); the reference: 1024
@@ -132,6 +132,7 @@ def _blocked(o, d, tmin, tmax, block_rays):
             _pad(tmax, -1.0).view(nb, block_rays))
 
 
+@spans.traced(spans.ISECT_CANDIDATES)
 def sort_candidates(entry):
     """(cand int32, tnear, count int32) from the entry distances
     [n_blocks, maxc_pad]: each row's chunks stably sorted by entry, and the
@@ -426,20 +427,23 @@ def _sorted_query(scene, o, d, tmin, tmax, block_rays):
     """Coherence-sorted rays and their candidates: (perm, rays, boxes,
     (cand, tnear, count))."""
     _check_walkable(scene)
-    rays = _rays(o, d, tmin, tmax)
-    perm = _coherence_perm(scene, rays[0], rays[1])
-    rays = tuple(x[perm].contiguous() for x in rays)
-    boxes = _chunk_boxes(scene)
-    if rays[0].is_cuda:
-        entry = candidates_kernel(boxes, *rays, block_rays)
-    elif rays[0].device.type == "cpu":
-        entry = candidates_plain(boxes, *rays, block_rays)
-    else:
-        raise ValueError(f"the walk engine runs on CUDA or the CPU, not on "
-                         f"{rays[0].device}")
+    with spans.span(spans.ISECT_ORDER):
+        rays = _rays(o, d, tmin, tmax)
+        perm = _coherence_perm(scene, rays[0], rays[1])
+        rays = tuple(x[perm].contiguous() for x in rays)
+        boxes = _chunk_boxes(scene)
+    with spans.span(spans.ISECT_KERNEL):
+        if rays[0].is_cuda:
+            entry = candidates_kernel(boxes, *rays, block_rays)
+        elif rays[0].device.type == "cpu":
+            entry = candidates_plain(boxes, *rays, block_rays)
+        else:
+            raise ValueError(f"the walk engine runs on CUDA or the CPU, not "
+                             f"on {rays[0].device}")
     return perm, rays, boxes, sort_candidates(entry)
 
 
+@spans.traced(spans.ISECT_UNSORT)
 def _unsort(perm, x):
     out = torch.empty_like(x)
     out[perm] = x
@@ -452,12 +456,13 @@ def intersect_closest_raw(scene, o, d, tmin=0.0, tmax=100.0,
     walk-padded index space."""
     perm, rays, boxes, (cand, tnear, count) = _sorted_query(
         scene, o, d, tmin, tmax, block_rays)
-    if rays[0].is_cuda:
-        t, tri_id = closest_kernel(scene.walk_tris, boxes, cand, tnear,
-                                   count, *rays, block_rays)
-    else:
-        t, tri_id = closest_plain(scene.walk_tris, cand, count, *rays,
-                                  block_rays)
+    with spans.span(spans.ISECT_KERNEL):
+        if rays[0].is_cuda:
+            t, tri_id = closest_kernel(scene.walk_tris, boxes, cand, tnear,
+                                       count, *rays, block_rays)
+        else:
+            t, tri_id = closest_plain(scene.walk_tris, cand, count, *rays,
+                                      block_rays)
     return _unsort(perm, t), _unsort(perm, tri_id)
 
 
@@ -471,28 +476,15 @@ def intersect_closest(scene, o, d, tmin=0.0, tmax=100.0,
     return _hit_record(scene, o, best_t, best_id, tmax)
 
 
-def _hit_record(scene, o, best_t, best_id, tmax):
-    """The Hit of raw (t, id) in the walk-padded index space: ids of walk
-    or flat padding are misses, and misses report tmax."""
-    n_real = scene.tri_valid.shape[0]
-    valid = ((best_id >= 0) & (best_id < n_real)
-             & scene.tri_valid[best_id.clamp(0, n_real - 1).long()])
-    tmax_arr = torch.as_tensor(tmax, dtype=torch.float32,
-                               device=o.device).expand(o.shape[:-1])
-    zeros = torch.zeros_like(best_t)
-    return Hit(t=torch.where(valid, best_t, tmax_arr),
-               tri_id=torch.where(valid, best_id, -1),
-               u=zeros, v=zeros, hit=valid,
-               back_face=torch.zeros_like(valid))
-
-
 def intersect_any(scene, o, d, tmin=0.0, tmax=100.0, block_rays=BLOCK_RAYS):
     """True where some triangle blocks the segment (tmin, tmax)."""
     perm, rays, boxes, (cand, _, count) = _sorted_query(
         scene, o, d, tmin, tmax, block_rays)
-    if rays[0].is_cuda:
-        blocked = any_kernel(scene.walk_tris, boxes, cand, count, *rays,
-                             block_rays)
-    else:
-        blocked = any_plain(scene.walk_tris, cand, count, *rays, block_rays)
+    with spans.span(spans.ISECT_KERNEL):
+        if rays[0].is_cuda:
+            blocked = any_kernel(scene.walk_tris, boxes, cand, count, *rays,
+                                 block_rays)
+        else:
+            blocked = any_plain(scene.walk_tris, cand, count, *rays,
+                                block_rays)
     return _unsort(perm, blocked)
