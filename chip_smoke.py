@@ -55,8 +55,14 @@ runs the dense closest kernel over the 40-triangle cutout sub-scene).
    the frame first runs it on: closest and candidates at the primary
    wavefront (hall's dense closest at its first cutout chain, packet at
    bounce 1), occlusion at the bounce-0 shadow wavefront, with the other
-   wavefronts listed. The build's register counts (ptxas -v) of all
-   seven kernels are printed.
+   wavefronts listed. The layered glossy-diffuse lobe's two kernels
+   (csrc/layered_bsdf.cu, which replace no TPU kernel) run at every call
+   of a real `layered` frame (f and sample at bounces 0 and 1, 2,073,600
+   lanes each): outputs bit for bit the plain lobe's, kernel and plain ms,
+   and a bound from the work the kernel counts itself (FP32 operations at
+   the FP32 rate, float64 exp / cos / sin calls x FP64_CALL_OPS at the
+   FP64 rate, or bytes, the largest). The build's register counts
+   (ptxas -v) of all nine kernels are printed.
 2. Path phase. `render` (method "auto") of each cell at 1920x1080 with
    every launch counter zeroed just before and read just after; each
    cell's kernels must have launched and the image must be finite and
@@ -142,9 +148,10 @@ CELLS = (
     ("hall", 2, 2),             # bench.py hall_fwd: walk, packet, dense
 )
 WALK = ("walk_candidates", "walk_closest", "walk_any")
+LAYERED = ("layered_f", "layered_sample")
 CELL_KERNELS = {  # the kernels each cell's render must launch
     "scene3_cornell": ("dense_closest", "dense_any"),
-    "diffuse": WALK, "layered": WALK,
+    "diffuse": WALK, "layered": WALK + LAYERED,
     # hall's cutout chains are closest-hit queries, so no dense_any
     "hall": WALK + ("packet_closest", "packet_any", "dense_closest"),
 }
@@ -174,6 +181,11 @@ CAND_OPS = 28
 # mul, 2 min/max and the running max and min, then 4 compares)
 SLAB_OPS = 28
 SMS, FP32_LANES = 132, 128       # H100 SXM
+FP64_LANES = 64                  # H100 SXM: FP64 lanes an SM
+# FP64 operations charged to one float64 exp, cos or sin of the layered
+# lobe's kernels: libdevice's argument reduction and polynomial, about 20
+# multiply-adds a call (an estimate, not a count of the build's code)
+FP64_CALL_OPS = 20
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 
 
@@ -217,14 +229,15 @@ def cuda_time_ms(fn, reps):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route every kernel wrapper (dense, walk and packet) to its plain
-    version."""
+    """Route every kernel wrapper (dense, walk, packet and the layered
+    lobe's) to its plain version."""
     from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
     from optixpathtracer_tpu_torch.intersect import packet_kernels as pk
     from optixpathtracer_tpu_torch.intersect import walk_kernels as wk
+    from optixpathtracer_tpu_torch.bsdf import glossy_diffuse as gd
     saved = (dk.closest_kernel, dk.any_kernel, wk.candidates_kernel,
              wk.closest_kernel, wk.any_kernel, pk.packet_closest_kernel,
-             pk.packet_any_kernel)
+             pk.packet_any_kernel, gd.f_kernel, gd.sample_kernel)
     dk.closest_kernel = (lambda tris, boxes, n_live, *rays:
                          dk.closest_plain(tris, *rays))
     dk.any_kernel = (lambda tris, boxes, n_live, *rays:
@@ -238,16 +251,18 @@ def plain_kernels():
                                                  pk.packet_closest_plain)
     pk.packet_any_kernel = functools.partial(pk.plain_launch,
                                              pk.packet_any_plain)
+    gd.f_kernel, gd.sample_kernel = gd.f_plain, gd.sample_plain
     try:
         yield
     finally:
         (dk.closest_kernel, dk.any_kernel, wk.candidates_kernel,
          wk.closest_kernel, wk.any_kernel, pk.packet_closest_kernel,
-         pk.packet_any_kernel) = saved
+         pk.packet_any_kernel, gd.f_kernel, gd.sample_kernel) = saved
 
 
 def kernel_wrappers():
-    """{name: wrapper} of every ported kernel."""
+    """{name: wrapper} of every hand-written kernel."""
+    from optixpathtracer_tpu_torch.bsdf import glossy_diffuse as gd
     from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
     from optixpathtracer_tpu_torch.intersect import packet_kernels as pk
     from optixpathtracer_tpu_torch.intersect import walk_kernels as wk
@@ -255,7 +270,8 @@ def kernel_wrappers():
             "walk_candidates": wk.candidates_kernel,
             "walk_closest": wk.closest_kernel, "walk_any": wk.any_kernel,
             "packet_closest": pk.packet_closest_kernel,
-            "packet_any": pk.packet_any_kernel}
+            "packet_any": pk.packet_any_kernel,
+            "layered_f": gd.f_kernel, "layered_sample": gd.sample_kernel}
 
 
 @contextlib.contextmanager
@@ -854,13 +870,15 @@ def ptxas_usage(report):
 
 
 def kernel_registers(reports):
-    """{kernel: (registers, static shared bytes)} of the seven kernels,
-    from the ptxas reports of the build."""
+    """{kernel: (registers, static shared bytes)} of the nine kernels,
+    from the ptxas reports of the build (the layered lobe's main-path
+    instantiations, not those that count their work)."""
     usage = {}
     for report in reports.values():
         for mangled, v in ptxas_usage(report).items():
             for kname in KERNEL_SOURCES:
-                if f"{kname}_kernel" in mangled:
+                if f"{kname}_kernel" in mangled and not (
+                        kname in LAYERED and "ILb1E" in mangled):
                     usage[kname] = v
     return usage
 
@@ -961,6 +979,126 @@ def chunk256_phase(model, lights, camera, dev, stats):
     err = walk_check("diffuse@256", "primary", scene, closest[0], "closest")
     walk_check("diffuse@256", "primary", scene, closest[0], "any")
     stats["chunk256_err"] = err
+
+
+# ---------------------------------------------------------------------------
+# The layered glossy-diffuse lobe
+# ---------------------------------------------------------------------------
+
+def layered_calls(scene, camera, bounces, dev):
+    """Every call of the layered lobe's f and sample in one real 1080p
+    trace_paths frame of the scene ("auto" routing), in call order:
+    [(kind, args, kwargs)]."""
+    import torch
+    from optixpathtracer_tpu_torch.bsdf import glossy_diffuse as gd
+    from optixpathtracer_tpu_torch.camera.camera import generate_rays
+    from optixpathtracer_tpu_torch.core import rng
+    from optixpathtracer_tpu_torch.integrate import path
+    calls, saved = [], (gd.f, gd.sample)
+
+    def recorded(kind, fn):
+        def run(*args, **kwargs):
+            calls.append((kind, args, kwargs))
+            return fn(*args, **kwargs)
+        return run
+
+    o, d = generate_rays(*camera.raygen_params(WIDTH, HEIGHT, dev), WIDTH,
+                         HEIGHT)
+    ys, xs = torch.meshgrid(torch.arange(HEIGHT, device=dev),
+                            torch.arange(WIDTH, device=dev), indexing="ij")
+    seed = rng.pixel_seed(WIDTH, xs.reshape(-1), ys.reshape(-1), 0)
+    gd.f, gd.sample = recorded("f", saved[0]), recorded("sample", saved[1])
+    try:
+        with torch.no_grad():
+            path.trace_paths(scene, o.reshape(-1, 3).contiguous(),
+                             d.reshape(-1, 3).contiguous(), seed, bounces,
+                             "auto", **scene_flags(scene))
+    finally:
+        gd.f, gd.sample = saved
+    assert [c[0] for c in calls] == ["f", "sample"] * bounces
+    return calls
+
+
+def _lobe_outputs(out):
+    """The tensors of a lobe call's (seed, rgb) or (seed, BSDFSample)."""
+    seed, rest = out
+    return [seed] + (list(rest) if isinstance(rest, tuple) else [rest])
+
+
+def _bits(x):
+    """x's bits: a float32 tensor viewed as int32, others as they are."""
+    import torch
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def layered_bound(card, ops, lanes, n_bytes):
+    """(bound ms, what bounds it) of one lobe kernel call from the work it
+    counted (FP32 operations, float64 calls): FP32 operations at the FP32
+    rate, float64 calls x FP64_CALL_OPS at the FP64 rate, or bytes at
+    3.35 TB/s, whichever is largest."""
+    fp32, fp64 = (int(v) for v in ops.tolist())
+    times = {"fp32 operations": fp32 / card.fp32_per_s * 1e3,
+             "fp64 calls": fp64 * FP64_CALL_OPS / (
+                 SMS * FP64_LANES * card.max_sm_mhz * 1e6) * 1e3,
+             "bytes": lanes * n_bytes / HBM_BYTES_PER_S * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by, fp32, fp64
+
+
+# bytes a lane reads and writes: f seed, albedo, roughness, wo, wi, eta ->
+# rgb; sample seed, albedo, roughness, wo, eta -> seed, color, direction,
+# pdf, five flags
+LAYERED_BYTES = {"f": 8 + 12 + 4 + 12 + 12 + 4 + 12,
+                 "sample": 8 + 12 + 4 + 12 + 4 + 8 + 12 + 12 + 4 + 5}
+
+
+def layered_phase(name, scene, camera, bounces, dev, card, stats):
+    """The layered lobe's two kernels at every call of one real 1080p
+    frame: each against the plain lobe bit for bit (its counting
+    instantiation too), timed with CUDA events (the plain lobe too), and
+    bounded from the work it counted."""
+    import torch
+    from optixpathtracer_tpu_torch.bsdf import glossy_diffuse as gd
+    calls = layered_calls(scene, camera, bounces, dev)
+    kernels = {"f": gd.f_kernel, "sample": gd.sample_kernel}
+    plains = {"f": gd.f_plain, "sample": gd.sample_plain}
+    rows = {}
+    with torch.no_grad():
+        for i, (kind, args, kwargs) in enumerate(calls):
+            bounce = i // 2
+            ops = torch.zeros(2, dtype=torch.int64, device=dev)
+            got = _lobe_outputs(kernels[kind](*args, **kwargs))
+            counted = _lobe_outputs(kernels[kind](*args, **kwargs, ops=ops))
+            want = _lobe_outputs(plains[kind](*args, **kwargs))
+            torch.cuda.synchronize()
+            for a, c, b in zip(got, counted, want):
+                if not (torch.equal(_bits(a), _bits(b))
+                        and torch.equal(_bits(c), _bits(b))):
+                    raise AssertionError(f"{name} layered {kind} bounce "
+                                         f"{bounce}: kernel != plain")
+            lanes = args[3].shape[0]
+            ms = cuda_time_ms(lambda: kernels[kind](*args, **kwargs), 10)
+            plain_ms = cuda_time_ms(lambda: plains[kind](*args, **kwargs), 2)
+            bound_ms, by, fp32, fp64 = layered_bound(
+                card, ops, lanes, LAYERED_BYTES[kind])
+            rows.setdefault(kind, []).append({
+                "bounce": bounce, "lanes": lanes, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+                "fp32_ops": fp32, "fp64_calls": fp64})
+            log(f"  {name} layered {kind} bounce {bounce}: {lanes} lanes "
+                f"bit for bit the plain lobe; kernel {ms:.3f} ms, plain "
+                f"{plain_ms:.1f} ms; {fp32 / lanes:.0f} FP32 operations and "
+                f"{fp64 / lanes:.1f} float64 calls a lane; bound "
+                f"{bound_ms:.3f} ms ({by}), reach {bound_ms / ms:.1%}")
+    for kind, kname in (("f", "layered_f"), ("sample", "layered_sample")):
+        first = rows[kind][0]
+        stats[(name, kname)] = {
+            "max_abs_err": 0.0, "ms": first["ms"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"],
+            "bounce_ms": [r["ms"] for r in rows[kind]],
+            "bounce_bound_ms": [r["bound_ms"] for r in rows[kind]],
+            "bounces": rows[kind]}
 
 
 # ---------------------------------------------------------------------------
@@ -1980,6 +2118,8 @@ KERNEL_SOURCES = {
                        "optixpathtracer_tpu/intersect/packet_kernels.py:182"),
     "packet_any": ("packet_intersect.cu",
                    "optixpathtracer_tpu/intersect/packet_kernels.py:290"),
+    "layered_f": ("layered_bsdf.cu", None),  # no TPU kernel: plain jnp
+    "layered_sample": ("layered_bsdf.cu", None),
 }
 
 
@@ -2037,6 +2177,8 @@ def main():
                        dense_table=name == "diffuse")
         if name == "diffuse":
             chunk256_phase(model, lights, camera, dev, stats)
+        if name == "layered":
+            layered_phase(name, scene, camera, bounces, dev, card, stats)
         if name == "hall":
             walk_phase(name, main_scene, waves, card, stats,
                        primary_sub=SUBSAMPLE)
@@ -2093,7 +2235,7 @@ def main():
                 "bounce_bound_ms": s.get("bounce_bound_ms"),
                 "registers": registers.get(kname, (None,))[0],
                 "render_mrays_per_s": stats[(name, "render")]["mrays_per_s"],
-                "path_launches": {k: v[kname]
+                "path_launches": {k: v.get(kname)
                                   for k, v in path_launches.items()},
             })
     assert {k["name"].split(":")[0] for k in kernels} == set(KERNEL_SOURCES)

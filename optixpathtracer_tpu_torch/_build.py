@@ -19,7 +19,8 @@ import subprocess
 _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "_build")
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("dense_intersect", "walk_intersect", "packet_intersect")
+SOURCES = ("dense_intersect", "walk_intersect", "packet_intersect",
+           "layered_bsdf")
 
 # sm_90a: Hopper with its arch-specific features. --fmad=false keeps every
 # multiply and add separately rounded, as the reference kernels and the

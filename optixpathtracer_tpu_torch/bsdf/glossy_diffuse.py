@@ -15,11 +15,21 @@ sampling, and a TEA-folded stream keyed by `float_hash_seed` drives Russian
 roulette. f() evaluates its n_samples estimator walks as one leading axis,
 each with its own TEA-folded stream, and leaves the caller's seed as it
 was.
+
+f and sample each have two implementations of one contract, equal bit for
+bit: CUDA kernels (`csrc/layered_bsdf.cu`, launched by `f_kernel` and
+`sample_kernel`) and the plain PyTorch versions `f_plain` and
+`sample_plain`. `uses_kernel` picks between them: the kernels run on CUDA
+inputs that autograd does not record (they have no backward); the plain
+versions on the CPU and under autograd on the card.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from .. import _build
 from ..core import rng
 from ..core.math import abs_cos_theta, div, exp, same_hemisphere, sqr
 from . import dielectric as _dielectric
@@ -70,8 +80,8 @@ def _per_pdf(color, cos, pdf):
             / torch.where(pdf == 0.0, 1.0, pdf)[..., None])
 
 
-def f(seed, albedo, roughness, wo, wi, eta=DEFAULT_IOR, n_samples=N_SAMPLES,
-      max_depth=MAX_DEPTH, thickness=THICKNESS):
+def f_plain(seed, albedo, roughness, wo, wi, eta=DEFAULT_IOR,
+            n_samples=N_SAMPLES, max_depth=MAX_DEPTH, thickness=THICKNESS):
     """Stochastic estimate of the layered BSDF value, the mean of n_samples
     random walks (reference `GlossyDiffuse.h:141-367`). Returns
     (seed, rgb) with the caller's seed unchanged."""
@@ -183,8 +193,8 @@ def f(seed, albedo, roughness, wo, wi, eta=DEFAULT_IOR, n_samples=N_SAMPLES,
     return seed, div(total, float(n_samples))
 
 
-def sample(seed, albedo, roughness, wo, eta=DEFAULT_IOR, max_depth=MAX_DEPTH,
-           thickness=THICKNESS):
+def sample_plain(seed, albedo, roughness, wo, eta=DEFAULT_IOR,
+                 max_depth=MAX_DEPTH, thickness=THICKNESS):
     """Sample the layered BSDF with one random walk (reference
     `GlossyDiffuse.h:372-524`). The pdf is the product of the walk's pdfs,
     as in the reference. Returns (seed, BSDFSample)."""
@@ -283,3 +293,139 @@ def sample(seed, albedo, roughness, wo, eta=DEFAULT_IOR, max_depth=MAX_DEPTH,
         glossy=~out_specular)
     return seed, where_sample(bs0_ok & bs0.reflection, refl_sample,
                               walk_sample)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels (csrc/layered_bsdf.cu)
+# ---------------------------------------------------------------------------
+
+def _on_cuda(x):
+    return x.is_cuda
+
+
+def uses_kernel(*inputs):
+    """Whether the lobe runs as its CUDA kernel on these inputs (tensors
+    and Python numbers, the first a tensor): they lie on CUDA and autograd
+    records nothing of them."""
+    tensors = [x for x in inputs if isinstance(x, torch.Tensor)]
+    return _on_cuda(tensors[0]) and not (
+        torch.is_grad_enabled() and any(x.requires_grad for x in tensors))
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_ARGTYPES = {
+    "layered_f": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P],
+    "layered_sample": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P, _P,
+                       _P, _P, _P],
+}
+
+
+def _fn(name):
+    fn = getattr(_build.load("layered_bsdf"), name)
+    fn.argtypes = _ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _lanes(wo, *specs):
+    """Each (x, dtype, tail) of `specs` broadcast to wo's lanes and made
+    contiguous as [n, *tail]; raise unless it is of that dtype on wo's
+    CUDA device. A Python number becomes a tensor of the dtype."""
+    batch, out = wo.shape[:-1], []
+    for x, dtype, tail in specs:
+        if not isinstance(x, torch.Tensor):
+            x = torch.full((), x, dtype=dtype, device=wo.device)
+        if not (x.is_cuda and x.device == wo.device and x.dtype == dtype):
+            raise ValueError(f"kernel input {tuple(x.shape)} {x.dtype} on "
+                             f"{x.device}: expected {dtype} on {wo.device}")
+        out.append(x.expand(batch + tail).reshape((-1,) + tail).contiguous())
+    if out[0].shape[0] >= 2**31:
+        raise ValueError("too many lanes for one launch")
+    return out
+
+
+def _layer_args(n_samples, max_depth, thickness):
+    if n_samples < 1 or max_depth < 0:
+        raise ValueError(f"n_samples {n_samples} < 1 or max_depth "
+                         f"{max_depth} < 0")
+    return -abs(thickness), int(abs(thickness) <= _F32_TINY)
+
+
+def f_kernel(seed, albedo, roughness, wo, wi, eta=DEFAULT_IOR,
+             n_samples=N_SAMPLES, max_depth=MAX_DEPTH, thickness=THICKNESS,
+             ops=None):
+    """Launch the f kernel: (seed, rgb), the seed handed back unchanged.
+    ops: None, or a CUDA uint64 [2] tensor the kernel adds its FP32
+    operations and float64 calls to."""
+    neg_dz, thin = _layer_args(n_samples, max_depth, thickness)
+    f32 = torch.float32
+    lanes = _lanes(wo, (wo, f32, (3,)), (wi, f32, (3,)),
+                   (seed, torch.int64, ()), (albedo, f32, (3,)),
+                   (roughness, f32, ()), (eta, f32, ()))
+    wo_l, wi_l, seed_l, alb_l, rough_l, eta_l = lanes
+    out = torch.empty(wo.shape, dtype=f32, device=wo.device)
+    with torch.cuda.device(wo.device):
+        err = _fn("layered_f")(
+            seed_l.data_ptr(), alb_l.data_ptr(), rough_l.data_ptr(),
+            wo_l.data_ptr(), wi_l.data_ptr(), eta_l.data_ptr(),
+            wo_l.shape[0], n_samples, max_depth, neg_dz, thin,
+            out.data_ptr(), None if ops is None else ops.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"layered_f launch failed: CUDA error {err}")
+    f_kernel.launches += 1
+    return seed, out
+
+
+def sample_kernel(seed, albedo, roughness, wo, eta=DEFAULT_IOR,
+                  max_depth=MAX_DEPTH, thickness=THICKNESS, ops=None):
+    """Launch the sample kernel: (seed, BSDFSample). ops: see f_kernel."""
+    neg_dz, thin = _layer_args(1, max_depth, thickness)
+    f32 = torch.float32
+    batch, dev = wo.shape[:-1], wo.device
+    wo_l, seed_l, alb_l, rough_l, eta_l = _lanes(
+        wo, (wo, f32, (3,)), (seed, torch.int64, ()), (albedo, f32, (3,)),
+        (roughness, f32, ()), (eta, f32, ()))
+    n = wo_l.shape[0]
+    seed_out = torch.empty(batch, dtype=torch.int64, device=dev)
+    color = torch.empty(wo.shape, dtype=f32, device=dev)
+    direction = torch.empty(wo.shape, dtype=f32, device=dev)
+    pdf = torch.empty(batch, dtype=f32, device=dev)
+    flags = torch.empty((5,) + batch, dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        err = _fn("layered_sample")(
+            seed_l.data_ptr(), alb_l.data_ptr(), rough_l.data_ptr(),
+            wo_l.data_ptr(), eta_l.data_ptr(), n, max_depth, neg_dz, thin,
+            seed_out.data_ptr(), color.data_ptr(), direction.data_ptr(),
+            pdf.data_ptr(), flags.data_ptr(),
+            None if ops is None else ops.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"layered_sample launch failed: CUDA error {err}")
+    sample_kernel.launches += 1
+    return seed_out, BSDFSample(color, direction, pdf, *flags.unbind(0))
+
+
+f_kernel.launches = 0
+sample_kernel.launches = 0
+
+
+def f(seed, albedo, roughness, wo, wi, eta=DEFAULT_IOR, n_samples=N_SAMPLES,
+      max_depth=MAX_DEPTH, thickness=THICKNESS):
+    """The layered BSDF value, (seed, rgb): `f_plain`'s, through the kernel
+    where `uses_kernel`."""
+    run = (f_kernel if uses_kernel(wo, wi, seed, albedo, roughness, eta)
+           else f_plain)
+    return run(seed, albedo, roughness, wo, wi, eta, n_samples, max_depth,
+               thickness)
+
+
+def sample(seed, albedo, roughness, wo, eta=DEFAULT_IOR, max_depth=MAX_DEPTH,
+           thickness=THICKNESS):
+    """A layered BSDF sample, (seed, BSDFSample): `sample_plain`'s, through
+    the kernel where `uses_kernel`."""
+    run = (sample_kernel if uses_kernel(wo, seed, albedo, roughness, eta)
+           else sample_plain)
+    return run(seed, albedo, roughness, wo, eta, max_depth, thickness)

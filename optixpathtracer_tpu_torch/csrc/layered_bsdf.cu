@@ -1,0 +1,1042 @@
+// The layered glossy-diffuse lobe for Hopper: its BSDF value (f, the mean of
+// n_samples random walks through the coat-over-Lambert layer) and its sample
+// (one random walk), each as one kernel.
+//
+// Replaces no TPU kernel. The JAX package evaluates this lobe
+// (optixpathtracer_tpu/bsdf/glossy_diffuse.py) as plain jnp ops that XLA
+// fuses; the port's plain version (bsdf/glossy_diffuse.py f_plain,
+// sample_plain) runs them as some 27,000 (f) and 15,000 (sample) eager
+// PyTorch launches a call, each a full pass of the wavefront through device
+// memory. These kernels keep every walk's state in registers.
+//
+// The contract is the plain version's, bit for bit, on every output:
+//   * f: rgb [n, 3] (the caller's seed is handed back unchanged by the
+//     wrapper); sample: the advanced seed, color, direction, pdf and the
+//     valid / reflection / transmission / specular / glossy flags.
+//   * Every product and sum in the plain version's order, each separately
+//     rounded (the build's --fmad=false); '/' and sqrtf are correctly
+//     rounded as built, as PyTorch's are; exp, cos and sin are taken in
+//     float64 and rounded once to float32, as core/math.py does; a Python
+//     float constant is the float32 PyTorch makes of the double; clamp,
+//     amax and comparisons treat NaN as the torch ops do.
+//   * The RNG draws are the plain version's lane by lane: a lane draws its
+//     lobe choice and the two uniforms of the rough branch's sample_wm in
+//     every dielectric event, smooth or not, and its two disk uniforms in
+//     every Lambert event; the sample's seed is advanced by every depth's
+//     draws whether the walk is still going or not. A lane computes only
+//     the branch it takes (smooth or rough, reflected or transmitted, and
+//     nothing of a walk once it has ended), which gives the same values:
+//     the plain version computes every branch and selects.
+//
+// What bounds them on the H100 is arithmetic, not bytes. A lane of f reads
+// 52 bytes and writes 12; a walk step is a Lambert or dielectric event of
+// a few hundred FP32 operations (a normalisation, Fresnel, the GGX terms),
+// plus the float64 exp, cos and sin. So the design keeps lanes busy:
+//   a. f runs one thread per (lane, walk): a block holds 32 neighbouring
+//      lanes and min(n_samples, 8) warps, warp w taking walks w, w + 8, ...
+//      of all 32 lanes, so a warp holds one walk index of neighbouring
+//      lanes (one sphere, one smooth/rough branch). Each walk's value goes
+//      to shared memory, and one thread a lane sums the walks in order
+//      0..n_samples-1 and adds the coat's entrance term, as the plain
+//      version does. The lane's chained float-hash seed is computed once
+//      (warp 0) and shared.
+//   b. sample runs one thread per lane (one walk a lane).
+//   c. A walk stops when it dies (f) or stops walking (sample); the sample
+//      then advances its seed by the draws the remaining depths would make.
+// Each kernel can count the work it did (FP32 operations, as counted below
+// beside each function, and float64 exp / cos / sin calls) into two
+// 64-bit counters; the wrappers pass none on the main path.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kFWarpsMax = 8;        // walk warps a block of f
+constexpr int kFThreads = kFWarpsMax * 32;
+constexpr int kSampleThreads = 128;  // lanes a block of sample
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// Python float constants as PyTorch applies them to float32 tensors: the
+// double, rounded once to float32.
+constexpr float kPi = static_cast<float>(3.14159265358979323846);
+constexpr float kInvPi = static_cast<float>(0.31830988618379067154);
+constexpr float kPiOver4 = static_cast<float>(0.78539816339744830961);
+constexpr float kPiOver2 = static_cast<float>(1.57079632679489661923);
+constexpr float kTwoPi = static_cast<float>(2.0 * 3.14159265359);
+constexpr float kSmoothAlpha = static_cast<float>(1e-3);
+constexpr float kMinAlpha = static_cast<float>(1e-4);
+constexpr float kMaxTan2 = static_cast<float>(1e6);
+constexpr float kMinCos4 = static_cast<float>(1e-16);
+constexpr float kMinNz = static_cast<float>(1e-6);
+constexpr float kNormEps = static_cast<float>(1e-20);
+constexpr float kWhMaxZ = static_cast<float>(0.99999);
+constexpr float kTrMinZ = static_cast<float>(1e-8);
+constexpr float kPdfMin = static_cast<float>(1e-20);
+constexpr float kRRBeta = 0.25f;
+constexpr float kU24 = 1.0f / 16777216.0f;  // exact: 2^-24
+
+// Work done by one thread: FP32 operations (each add, sub, mul, div, sqrt,
+// compare, min or max once; abs, negation and selects are free) and
+// float64 transcendental calls. Unused (and removed by the compiler) unless
+// the kernel counts.
+struct Ops {
+  uint32_t fp32 = 0;
+  uint32_t fp64 = 0;
+};
+
+struct V3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ V3 neg(V3 a) { return {-a.x, -a.y, -a.z}; }
+
+// a.x b.x + a.y b.y + a.z b.z, summed left to right (5 operations)
+__device__ __forceinline__ float dot(V3 a, V3 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z;
+}
+
+// core.math.cross's formula (9 operations)
+__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
+          a.x * b.y - a.y * b.x};
+}
+
+// torch.clamp: NaN passes through
+__device__ __forceinline__ float clamp_min(float v, float lo) {
+  return isnan(v) ? v : fmaxf(v, lo);
+}
+__device__ __forceinline__ float clamp_max(float v, float hi) {
+  return isnan(v) ? v : fminf(v, hi);
+}
+__device__ __forceinline__ float clamp(float v, float lo, float hi) {
+  return isnan(v) ? v : fminf(fmaxf(v, lo), hi);
+}
+
+// torch.amax over three channels: NaN if any is NaN
+__device__ __forceinline__ float amax3(const float* v) {
+  if (isnan(v[0]) || isnan(v[1]) || isnan(v[2])) return v[0] + v[1] + v[2];
+  return fmaxf(fmaxf(v[0], v[1]), v[2]);
+}
+
+__device__ __forceinline__ float safe_sqrt(float x) {  // 2
+  return x > 0.0f ? sqrtf(x) : 0.0f;
+}
+
+// core.math.normalize, eps 1e-20 (11)
+__device__ __forceinline__ V3 normalize(V3 v, Ops& ops) {
+  ops.fp32 += 11;
+  const float len2 = dot(v, v);
+  const bool ok = len2 > kNormEps;
+  const float inv = ok ? 1.0f / sqrtf(len2) : 0.0f;
+  return {v.x * inv, v.y * inv, v.z * inv};
+}
+
+// cos and sin of a float32 angle in float64, each rounded once
+__device__ __forceinline__ void cos_sin(float theta, float& c, float& s,
+                                        Ops& ops) {
+  ops.fp64 += 2;
+  const double t = static_cast<double>(theta);
+  c = static_cast<float>(cos(t));
+  s = static_cast<float>(sin(t));
+}
+
+// ---------------------------------------------------------------------------
+// RNG (core/rng.py), on 32-bit words
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t tea16(uint32_t v0, uint32_t v1) {
+  uint32_t s0 = 0;
+#pragma unroll 4
+  for (int i = 0; i < 16; ++i) {
+    s0 += 0x9E3779B9u;
+    v0 += ((v1 << 4) + 0xA341316Cu) ^ (v1 + s0) ^ ((v1 >> 5) + 0xC8013EA4u);
+    v1 += ((v0 << 4) + 0xAD90777Du) ^ (v0 + s0) ^ ((v0 >> 5) + 0x7E95761Eu);
+  }
+  return v0;
+}
+
+__device__ __forceinline__ void lcg(uint32_t& seed) {
+  seed = 1664525u * seed + 1013904223u;
+}
+
+__device__ __forceinline__ float rnd(uint32_t& seed, Ops& ops) {
+  ops.fp32 += 1;
+  lcg(seed);
+  return static_cast<float>(seed & 0x00FFFFFFu) * kU24;
+}
+
+// float_hash_seed's key: 1000 x truncated to int32 (saturating, NaN -> 0,
+// as PyTorch's cast on CUDA), taken modulo 2^32
+__device__ __forceinline__ uint32_t hash_key(float x) {
+  return static_cast<uint32_t>(static_cast<int>(x * 1000.0f));
+}
+
+// (px, py) on the concentric disk (rng.sample_uniform_disk_concentric; 16)
+__device__ __forceinline__ void disk_concentric(uint32_t& seed, float& px,
+                                                float& py, Ops& ops) {
+  ops.fp32 += 14;
+  const float u0 = rnd(seed, ops);
+  const float u1 = rnd(seed, ops);
+  const float ux = 2.0f * u0 - 1.0f;
+  const float uy = 2.0f * u1 - 1.0f;
+  const bool degenerate = ux == 0.0f && uy == 0.0f;
+  const bool use_x = fabsf(ux) > fabsf(uy);
+  const float r = use_x ? ux : uy;
+  const float safe_ux = ux == 0.0f ? 1.0f : ux;
+  const float safe_uy = uy == 0.0f ? 1.0f : uy;
+  const float theta = use_x ? kPiOver4 * (uy / safe_ux)
+                            : kPiOver2 - kPiOver4 * (ux / safe_uy);
+  float c, s;
+  cos_sin(theta, c, s, ops);
+  px = degenerate ? 0.0f : r * c;
+  py = degenerate ? 0.0f : r * s;
+}
+
+// ---------------------------------------------------------------------------
+// Spherical geometry and the GGX microfacet distribution (core/math.py,
+// core/microfacet.py), isotropic
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float tan2_theta(V3 w) {  // 5
+  const float c2 = w.z * w.z;
+  const float s2 = clamp_min(1.0f - c2, 0.0f);
+  return c2 > 0.0f ? s2 / c2 : __int_as_float(0x7f800000);
+}
+
+// (cos phi, sin phi) of w (15)
+__device__ __forceinline__ void cos_sin_phi(V3 w, float& cp, float& sp) {
+  const float st = safe_sqrt(clamp_min(1.0f - w.z * w.z, 0.0f));
+  cp = st == 0.0f ? 1.0f
+                  : clamp(st != 0.0f ? w.x / st : 0.0f, -1.0f, 1.0f);
+  sp = st == 0.0f ? 0.0f
+                  : clamp(st != 0.0f ? w.y / st : 0.0f, -1.0f, 1.0f);
+}
+
+// D(wm) (d_anisotropic with ax = ay = alpha; 40)
+__device__ __forceinline__ float ggx_d(V3 wm, float alpha, Ops& ops) {
+  ops.fp32 += 40;
+  const float a0 = clamp_min(alpha, kMinAlpha);
+  const float t2 = tan2_theta(wm);
+  const bool t2_ok = isfinite(t2);
+  const float t2s = clamp_max(t2_ok ? t2 : 0.0f, kMaxTan2);
+  const float c2 = wm.z * wm.z;
+  const float cos4 = c2 * c2;
+  float cp, sp;
+  cos_sin_phi(wm, cp, sp);
+  const float cpa = cp / a0;
+  const float spa = sp / a0;
+  const float e = t2s * (cpa * cpa + spa * spa);
+  const float ope = 1.0f + e;
+  const float denom = kPi * a0 * a0 * cos4 * (ope * ope);
+  const bool ok = t2_ok && cos4 >= kMinCos4 && isfinite(e);
+  return ok ? 1.0f / denom : 0.0f;
+}
+
+// Smith Lambda(w) (lambda_anisotropic with ax = ay = alpha; 31)
+__device__ __forceinline__ float smith_lambda(V3 w, float alpha, Ops& ops) {
+  ops.fp32 += 31;
+  const float t2 = tan2_theta(w);
+  float cp, sp;
+  cos_sin_phi(w, cp, sp);
+  const float ca = cp * alpha;
+  const float sa = sp * alpha;
+  const float a2 = ca * ca + sa * sa;
+  const bool ok = isfinite(t2);
+  const float val = (sqrtf(1.0f + a2 * (ok ? t2 : 0.0f)) - 1.0f) * 0.5f;
+  return ok ? val : 0.0f;
+}
+
+// smith_g from the two Lambdas: 1 / (1 + L(wo) + L(wi)) (3)
+__device__ __forceinline__ float smith_g(float l_o, float l_i, Ops& ops) {
+  ops.fp32 += 3;
+  return 1.0f / (1.0f + l_o + l_i);
+}
+
+// the VNDF pdf D_w(wm) = G1(w) D(wm) |w . wm| / |cos w|, from Lambda(w)
+// and D(wm) (11)
+__device__ __forceinline__ float vndf_pdf(V3 w, V3 wm, float l_w, float d,
+                                          Ops& ops) {
+  ops.fp32 += 11;
+  const float ct = fabsf(w.z);
+  const float g1 = 1.0f / (1.0f + l_w);
+  return g1 * d * fabsf(dot(w, wm)) / (ct == 0.0f ? 1.0f : ct);
+}
+
+// a visible microfacet normal (microfacet.sample_wm: 2 draws; 95)
+__device__ __forceinline__ V3 sample_wm(uint32_t& seed, V3 w, float a,
+                                        Ops& ops) {
+  ops.fp32 += 60;
+  V3 wh = normalize(V3{a * w.x, a * w.y, w.z}, ops);
+  if (wh.z < 0.0f) wh = neg(wh);
+  const V3 t1g = normalize(cross(V3{0.0f, 0.0f, 1.0f}, wh), ops);
+  const V3 t1 = wh.z < kWhMaxZ ? t1g : V3{1.0f, 0.0f, 0.0f};
+  const V3 t2 = cross(wh, t1);
+  // rng.sample_uniform_disk_polar
+  const float u0 = rnd(seed, ops);
+  const float u1 = rnd(seed, ops);
+  const float r = sqrtf(u0);
+  float c, s;
+  cos_sin(kTwoPi * u1, c, s, ops);
+  const float p0 = r * c;
+  const float p1 = r * s;
+  const float h = sqrtf(clamp_min(1.0f - p0 * p0, 0.0f));
+  const float lerp_t = (1.0f + wh.z) * 0.5f;
+  const float py = (1.0f - lerp_t) * h + lerp_t * p1;
+  const float pz = sqrtf(clamp_min(1.0f - (p0 * p0 + py * py), 0.0f));
+  const V3 nh = {p0 * t1.x + py * t2.x + pz * wh.x,
+                 p0 * t1.y + py * t2.y + pz * wh.y,
+                 p0 * t1.z + py * t2.z + pz * wh.z};
+  return normalize(V3{a * nh.x, a * nh.y, clamp_min(nh.z, kMinNz)}, ops);
+}
+
+// ---------------------------------------------------------------------------
+// Fresnel and refraction (core/fresnel.py)
+// ---------------------------------------------------------------------------
+
+// real dielectric Fresnel with orientation flip and TIR -> 1 (29)
+__device__ __forceinline__ float fresnel_dielectric(float cos_i, float ior,
+                                                    Ops& ops) {
+  ops.fp32 += 29;
+  float ci = clamp(cos_i, -1.0f, 1.0f);
+  const float eta = ci < 0.0f ? 1.0f / ior : ior;
+  ci = fabsf(ci);
+  const float sin2_i = 1.0f - ci * ci;
+  const float sin2_t = sin2_i / (eta * eta);
+  const bool tir = sin2_t >= 1.0f;
+  const float ct = safe_sqrt(1.0f - clamp_max(sin2_t, 1.0f));
+  const float den_parl = eta * ci + ct;
+  const float den_perp = ci + eta * ct;
+  const float r_parl =
+      (eta * ci - ct) / (den_parl == 0.0f ? 1.0f : den_parl);
+  const float r_perp =
+      (ci - eta * ct) / (den_perp == 0.0f ? 1.0f : den_perp);
+  const float fr = 0.5f * (r_parl * r_parl + r_perp * r_perp);
+  return tir ? 1.0f : fr;
+}
+
+// Snell refraction of wi about n with orientation flip: false on total
+// internal reflection, where wt = 0 (28)
+__device__ __forceinline__ bool refract(V3 wi, V3 n, float eta, float& etap,
+                                        V3& wt, Ops& ops) {
+  ops.fp32 += 28;
+  float ci = dot(n, wi);
+  const bool flip = ci < 0.0f;
+  const float eta_eff = flip ? 1.0f / eta : eta;
+  ci = fabsf(ci);
+  const V3 n_eff = flip ? neg(n) : n;
+  const float sin2_i = clamp_min(1.0f - ci * ci, 0.0f);
+  const float sin2_t = sin2_i / (eta_eff * eta_eff);
+  const bool valid = sin2_t < 1.0f;
+  const float ct = safe_sqrt(1.0f - clamp_max(sin2_t, 1.0f));
+  const float k = ci / eta_eff - ct;
+  etap = eta_eff;
+  wt = valid ? V3{-wi.x / eta_eff + k * n_eff.x, -wi.y / eta_eff + k * n_eff.y,
+                  -wi.z / eta_eff + k * n_eff.z}
+             : V3{0.0f, 0.0f, 0.0f};
+  return valid;
+}
+
+// ---------------------------------------------------------------------------
+// The dielectric coat (bsdf/dielectric.py) and the Lambert base
+// (bsdf/diffuse.py)
+// ---------------------------------------------------------------------------
+
+// A dielectric sample; its color is splat3 of `color`, reflection is
+// !transmission and glossy is !specular.
+struct DSample {
+  V3 dir;
+  float color;
+  float pdf;
+  bool valid;
+  bool transmission;
+  bool specular;
+};
+
+__device__ __forceinline__ bool sample_ok(const DSample& s) {  // bsdf _ok
+  return s.valid && s.color != 0.0f && s.pdf != 0.0f && s.dir.z != 0.0f;
+}
+
+// dielectric.sample: one uniform for the lobe choice, then the two of
+// sample_wm on every lane
+template <bool kRadiance, bool kRefl, bool kTrans>
+__device__ __forceinline__ DSample dielectric_sample(uint32_t& seed,
+                                                     float alpha, V3 wo,
+                                                     float eta, Ops& ops) {
+  DSample s;
+  const bool smooth = alpha < kSmoothAlpha || eta == 1.0f;
+  const float uc = rnd(seed, ops);
+  ops.fp32 += 2;
+  if (smooth) {
+    lcg(seed);  // the rough branch's two draws
+    lcg(seed);
+    ops.fp32 += 5;
+    const float r = fresnel_dielectric(wo.z, eta, ops);
+    const float t = 1.0f - r;
+    const float pr = kRefl ? r : 0.0f;
+    const float pt = kTrans ? t : 0.0f;
+    const float psum = pr + pt;
+    const bool any = psum > 0.0f;
+    const float psafe = any ? psum : 1.0f;
+    if (uc < pr / psafe) {
+      ops.fp32 += 3;
+      s.dir = V3{-wo.x, -wo.y, wo.z};
+      const float ct = fabsf(s.dir.z);
+      s.color = r / (ct == 0.0f ? 1.0f : ct);
+      s.pdf = pr / psafe;
+      s.valid = any;
+      s.transmission = false;
+    } else {
+      ops.fp32 += 3 + (kRadiance ? 2 : 0);
+      float etap;
+      V3 wt;
+      const bool vt = refract(wo, V3{0.0f, 0.0f, 1.0f}, eta, etap, wt, ops);
+      const float ct = fabsf(wt.z);
+      float ft = t / (ct == 0.0f ? 1.0f : ct);
+      if (kRadiance) ft = ft / (etap * etap);
+      s.dir = wt;
+      s.color = ft;
+      s.pdf = pt / psafe;
+      s.valid = any && vt;
+      s.transmission = true;
+    }
+    s.specular = true;
+    return s;
+  }
+  const V3 wm = sample_wm(seed, wo, alpha, ops);
+  const float dwo = dot(wo, wm);
+  const float r = fresnel_dielectric(dwo, eta, ops);
+  const float t = 1.0f - r;
+  const float pr = kRefl ? r : 0.0f;
+  const float pt = kTrans ? t : 0.0f;
+  const float psum = pr + pt;
+  const bool any = psum > 0.0f;
+  const float psafe = any ? psum : 1.0f;
+  const float d_val = ggx_d(wm, alpha, ops);
+  const float l_o = smith_lambda(wo, alpha, ops);
+  const float vndf = vndf_pdf(wo, wm, l_o, d_val, ops);
+  ops.fp32 += 10;
+  if (uc < pr / psafe) {
+    ops.fp32 += 21;
+    const float k = 2.0f * dwo;
+    const V3 wi = {-wo.x + k * wm.x, -wo.y + k * wm.y, -wo.z + k * wm.z};
+    const float awm = fabsf(dwo);
+    s.pdf = vndf / (awm == 0.0f ? 1.0f : 4.0f * awm) * pr / psafe;
+    const float den = 4.0f * wi.z * wo.z;
+    s.color = d_val * smith_g(l_o, smith_lambda(wi, alpha, ops), ops) * r /
+              (den == 0.0f ? 1.0f : den);
+    s.dir = wi;
+    s.valid = any && wo.z * wi.z > 0.0f && awm != 0.0f;
+    s.transmission = false;
+  } else {
+    ops.fp32 += 24 + (kRadiance ? 2 : 0);
+    float etap;
+    V3 wi;
+    const bool vt = refract(wo, wm, eta, etap, wi, ops);
+    const float dwi = dot(wi, wm);
+    const float g = dwi + dwo / etap;
+    const float denom_gt = g * g;
+    const float dwm_dwi =
+        fabsf(dwi) / (denom_gt == 0.0f ? 1.0f : denom_gt);
+    s.pdf = vndf * dwm_dwi * pt / psafe;
+    const float denom_ft = wi.z * wo.z * denom_gt;
+    float ft = t * d_val * smith_g(l_o, smith_lambda(wi, alpha, ops), ops) *
+               fabsf(dwi * dwo / (denom_ft == 0.0f ? 1.0f : denom_ft));
+    if (kRadiance) ft = ft / (etap * etap);
+    s.color = ft;
+    s.dir = wi;
+    s.valid = any && vt && !(wo.z * wi.z > 0.0f) && wi.z != 0.0f;
+    s.transmission = true;
+  }
+  s.specular = false;
+  return s;
+}
+
+// The generalized half vector of (wo, wi) (dielectric
+// _generalized_half_vector)
+struct HalfVector {
+  V3 wm;
+  float etap;
+  bool is_reflect;
+  bool valid;
+};
+
+__device__ __forceinline__ HalfVector half_vector(V3 wo, V3 wi, float eta,
+                                                  Ops& ops) {
+  ops.fp32 += 33;
+  HalfVector h;
+  const float ct_o = wo.z;
+  const float ct_i = wi.z;
+  h.is_reflect = ct_i * ct_o > 0.0f;
+  h.etap = h.is_reflect ? 1.0f : (ct_o > 0.0f ? eta : 1.0f / eta);
+  const V3 raw = {wi.x * h.etap + wo.x, wi.y * h.etap + wo.y,
+                  wi.z * h.etap + wo.z};
+  const bool degenerate =
+      ct_i == 0.0f || ct_o == 0.0f || dot(raw, raw) == 0.0f;
+  V3 wm = normalize(raw, ops);
+  if (wm.z < 0.0f) wm = neg(wm);
+  const bool backfacing =
+      dot(wm, wi) * ct_i < 0.0f || dot(wm, wo) * ct_o < 0.0f;
+  h.wm = wm;
+  h.valid = !degenerate && !backfacing;
+  return h;
+}
+
+// dielectric.f in radiance mode (one channel of its splat3), and, when
+// pdf_t is given and f is not 0, dielectric.pdf with reflection off and
+// transmission on, for the same (wo, wi): the two share the half vector,
+// Fresnel, D and Lambda(wo).
+__device__ __forceinline__ float dielectric_f(float alpha, V3 wo, V3 wi,
+                                              float eta, float* pdf_t,
+                                              Ops& ops) {
+  if (alpha < kSmoothAlpha || eta == 1.0f) return 0.0f;
+  const HalfVector h = half_vector(wo, wi, eta, ops);
+  const float ct_o = wo.z;
+  const float ct_i = wi.z;
+  const float dwo = dot(wo, h.wm);
+  const float dwi = dot(wi, h.wm);
+  const float g = dwi + dwo / h.etap;
+  const float denom_t = g * g * ct_i * ct_o;
+  ops.fp32 += 20;
+  if (!h.valid || denom_t == 0.0f) return 0.0f;
+  const float fr = fresnel_dielectric(dwo, eta, ops);
+  const float d_val = ggx_d(h.wm, alpha, ops);
+  const float l_o = smith_lambda(wo, alpha, ops);
+  const float g_val = smith_g(l_o, smith_lambda(wi, alpha, ops), ops);
+  float val;
+  if (h.is_reflect) {
+    ops.fp32 += 6;
+    const float denom_r = fabsf(4.0f * ct_i * ct_o);
+    val = d_val * g_val * fr / (denom_r == 0.0f ? 1.0f : denom_r);
+  } else {
+    ops.fp32 += 8;
+    val = d_val * (1.0f - fr) * g_val * fabsf(dwi * dwo / denom_t);
+    val = val / (h.etap * h.etap);
+  }
+  if (pdf_t != nullptr && val != 0.0f) {
+    ops.fp32 += 10;
+    const float t = 1.0f - fr;
+    const float pr = 0.0f;
+    const float pt = t;
+    const float psum = pr + pt;
+    const bool any = psum > 0.0f;
+    const float psafe = any ? psum : 1.0f;
+    const float vndf = vndf_pdf(wo, h.wm, l_o, d_val, ops);
+    float p;
+    if (h.is_reflect) {
+      const float awm = fabsf(dwo);
+      p = vndf / (awm == 0.0f ? 1.0f : 4.0f * awm) * pr / psafe;
+    } else {
+      const float denom = g * g;
+      const float dwm_dwi = fabsf(dwi) / (denom == 0.0f ? 1.0f : denom);
+      p = vndf * dwm_dwi * pt / psafe;
+    }
+    *pdf_t = any ? p : 0.0f;
+  }
+  return val;
+}
+
+// A cosine-weighted Lambert direction (diffuse.sample; the color is
+// albedo / pi and valid is pdf > 0)
+struct LSample {
+  V3 dir;
+  float pdf;
+};
+
+__device__ __forceinline__ LSample lambert_sample(uint32_t& seed, Ops& ops) {
+  ops.fp32 += 7;
+  float px, py;
+  disk_concentric(seed, px, py, ops);
+  const float z = sqrtf(clamp_min(1.0f - px * px - py * py, 0.0f));
+  LSample s;
+  s.dir = V3{px, py, fabsf(z)};
+  s.pdf = fabsf(s.dir.z) * kInvPi;
+  return s;
+}
+
+// exp(-|dz / w.z|) in float64, rounded once; 1 for a thin layer, 0 below
+// |w.z| = 1e-8 (glossy_diffuse.transmittance; neg_dz = -|dz|; 2)
+__device__ __forceinline__ float transmittance(float neg_dz, bool thin,
+                                               V3 w, Ops& ops) {
+  if (thin) return 1.0f;
+  ops.fp32 += 2;
+  ops.fp64 += 1;
+  const float wz = fabsf(w.z);
+  const bool ok = wz > kTrMinZ;
+  const float tr =
+      static_cast<float>(exp(static_cast<double>(neg_dz / (ok ? wz : 1.0f))));
+  return ok ? tr : 0.0f;
+}
+
+// balance-squared MIS weight (5)
+__device__ __forceinline__ float power_heuristic(float f_pdf, float g_pdf,
+                                                 Ops& ops) {
+  ops.fp32 += 5;
+  const float f2 = f_pdf * f_pdf;
+  const float g2 = g_pdf * g_pdf;
+  const float denom = f2 + g2;
+  return denom > 0.0f ? f2 / denom : 0.0f;
+}
+
+struct Lane {
+  V3 wo, wi;
+  float alb[3];
+  float alpha, eta;
+  uint32_t seed;
+};
+
+// ---------------------------------------------------------------------------
+// f: one estimator walk (glossy_diffuse.f_plain, one slice of its leading
+// axis); adds the walk's value to wf
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void walk_f(const Lane& L, uint32_t k,
+                                       uint32_t rr_base, int max_depth,
+                                       float neg_dz, bool thin, float* wf,
+                                       Ops& ops) {
+  uint32_t seed = tea16(L.seed, k);
+  uint32_t seed_rr = tea16(rr_base, k + 0x9E37u);
+  // the entrance transmission (wos) and the virtual light's (wis)
+  const DSample wos =
+      dielectric_sample<true, false, true>(seed, L.alpha, L.wo, L.eta, ops);
+  const DSample wis =
+      dielectric_sample<false, false, true>(seed, L.alpha, L.wi, L.eta, ops);
+  if (!(sample_ok(wos) && sample_ok(wis))) return;
+  const bool exit_specular = L.alpha < kSmoothAlpha;
+  ops.fp32 += 16;
+  const float b0 = wos.color * fabsf(wos.dir.z) /
+                   (wos.pdf == 0.0f ? 1.0f : wos.pdf);
+  float beta[3] = {b0, b0, b0};
+  V3 w = wos.dir;
+  const float wis_pdf = wis.pdf;
+  const float wis_weight =
+      fabsf(wis.dir.z) * transmittance(neg_dz, thin, wis.dir, ops) *
+      wis.color / (wis.pdf == 0.0f ? 1.0f : wis.pdf);
+  const V3 wis_down = neg(wis.dir);
+
+  for (int depth = 0; depth < max_depth; ++depth) {
+    if (depth > 3) {  // Russian roulette
+      ops.fp32 += 6;
+      const float beta_max = amax3(beta);
+      const bool rr_on = beta_max < kRRBeta;
+      const float q = clamp_min(1.0f - beta_max, 0.0f);
+      const float u_rr = rnd(seed_rr, ops);
+      if (rr_on && u_rr < q) return;
+      if (rr_on) {
+        ops.fp32 += 6;
+        const float boost = 1.0f / (q < 1.0f ? 1.0f - q : 1.0f);
+        beta[0] = beta[0] * boost;
+        beta[1] = beta[1] * boost;
+        beta[2] = beta[2] * boost;
+      }
+    }
+    const float tr = transmittance(neg_dz, thin, w, ops);
+    beta[0] = beta[0] * tr;
+    beta[1] = beta[1] * tr;
+    beta[2] = beta[2] * tr;
+    ops.fp32 += 3;
+
+    if ((depth & 1) == 0) {
+      // bottom (Lambert): NEE toward the presampled wis direction
+      const V3 w_down = neg(w);
+      const bool same = w_down.z * wis_down.z > 0.0f;
+      const float pdf_d = same ? fabsf(wis_down.z) * kInvPi : 0.0f;
+      const float ph_w = power_heuristic(wis_pdf, pdf_d, ops);
+      const float wt1 = exit_specular ? 1.0f : ph_w;
+      ops.fp32 += 18;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float f_d = same ? L.alb[c] * kInvPi : 0.0f;
+        wf[c] = wf[c] + beta[c] * f_d * wt1 * wis_weight;
+      }
+      // sample the base, then NEE through the exit coat along it
+      const LSample bs = lambert_sample(seed, ops);
+      float color[3];
+      bool color_nz = false;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        color[c] = L.alb[c] * kInvPi;
+        color_nz = color_nz || color[c] != 0.0f;
+      }
+      const bool bs_ok = bs.pdf > 0.0f && color_nz && bs.pdf != 0.0f &&
+                         bs.dir.z != 0.0f;
+      const float cos_b = fabsf(bs.dir.z);
+      const float pdf_safe = bs.pdf == 0.0f ? 1.0f : bs.pdf;
+      ops.fp32 += 19;
+      float new_beta[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        new_beta[c] = beta[c] * color[c] * cos_b / pdf_safe;
+      if (bs_ok && !exit_specular) {
+        float exit_pdf = 0.0f;
+        const float f_exit =
+            dielectric_f(L.alpha, neg(bs.dir), L.wi, L.eta, &exit_pdf, ops);
+        if (f_exit != 0.0f) {
+          const float wt2 = power_heuristic(bs.pdf, exit_pdf, ops);
+          const float tr_b = transmittance(neg_dz, thin, bs.dir, ops);
+          ops.fp32 += 12;
+#pragma unroll
+          for (int c = 0; c < 3; ++c)
+            wf[c] = wf[c] + new_beta[c] * tr_b * f_exit * wt2;
+        }
+      }
+      if (!bs_ok) return;
+      beta[0] = new_beta[0];
+      beta[1] = new_beta[1];
+      beta[2] = new_beta[2];
+      w = bs.dir;
+    } else {
+      // top (dielectric): reflection back down
+      const DSample bs = dielectric_sample<true, true, false>(
+          seed, L.alpha, neg(w), L.eta, ops);
+      if (!sample_ok(bs)) return;
+      ops.fp32 += 14;
+      const float cos_b = fabsf(bs.dir.z);
+      const float pdf_safe = bs.pdf == 0.0f ? 1.0f : bs.pdf;
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        beta[c] = beta[c] * bs.color * cos_b / pdf_safe;
+      w = bs.dir;
+    }
+  }
+}
+
+__device__ __forceinline__ Lane load_lane(const int64_t* __restrict__ seed,
+                                          const float* __restrict__ albedo,
+                                          const float* __restrict__ rough,
+                                          const float* __restrict__ wo,
+                                          const float* __restrict__ eta,
+                                          int i) {
+  Lane L;
+  L.seed = static_cast<uint32_t>(seed[i]);
+  L.alb[0] = albedo[3 * i];
+  L.alb[1] = albedo[3 * i + 1];
+  L.alb[2] = albedo[3 * i + 2];
+  const float r = rough[i];
+  L.alpha = r * r;
+  L.eta = eta[i];
+  L.wo = V3{wo[3 * i], wo[3 * i + 1], wo[3 * i + 2]};
+  return L;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFullMask, v, o);
+  return v;
+}
+
+// Adds the block's work to ops_out[0] (FP32 operations) and ops_out[1]
+// (float64 calls). Every thread of the block calls it.
+__device__ __forceinline__ void report(const Ops& ops,
+                                       unsigned long long* ops_out) {
+  const unsigned long long a = warp_sum<unsigned long long>(ops.fp32);
+  const unsigned long long b = warp_sum<unsigned long long>(ops.fp64);
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(ops_out, a);
+    atomicAdd(ops_out + 1, b);
+  }
+}
+
+// One block: 32 lanes x blockDim.y walk warps. Shared memory: the walks'
+// values [n_samples][32][3], then the lanes' float-hash seeds [32].
+template <bool kCount>
+__global__ void __launch_bounds__(kFThreads)
+    layered_f_kernel(const int64_t* __restrict__ seed,
+                     const float* __restrict__ albedo,
+                     const float* __restrict__ rough,
+                     const float* __restrict__ wo,
+                     const float* __restrict__ wi, const float* __restrict__ eta,
+                     int n, int n_samples, int max_depth, float neg_dz,
+                     int thin, float* __restrict__ out,
+                     unsigned long long* __restrict__ ops_out) {
+  extern __shared__ float smem[];
+  float* walk_vals = smem;
+  uint32_t* rr_base = reinterpret_cast<uint32_t*>(smem + n_samples * 96);
+  const int lane = threadIdx.x;
+  const int i = blockIdx.x * 32 + lane;
+  const bool live = i < n;
+  Ops ops;
+  Lane L;
+  bool same_hemi = false;
+  if (live) {
+    L = load_lane(seed, albedo, rough, wo, eta, i);
+    L.wi = V3{wi[3 * i], wi[3 * i + 1], wi[3 * i + 2]};
+    if (L.wo.z < 0.0f) {  // two-sided
+      L.wo = neg(L.wo);
+      L.wi = neg(L.wi);
+    }
+    same_hemi = L.wo.z * L.wi.z > 0.0f;
+    if (threadIdx.y == 0) {
+      uint32_t s = tea16(hash_key(L.wo.x), hash_key(L.wo.y));
+      s = tea16(s, hash_key(L.wi.x));
+      s = tea16(s, hash_key(L.wi.y));
+      rr_base[lane] = tea16(s, L.seed);
+    }
+  }
+  __syncthreads();
+  if (live) {
+    for (int k = threadIdx.y; k < n_samples; k += blockDim.y) {
+      float wf[3] = {0.0f, 0.0f, 0.0f};
+      if (same_hemi)
+        walk_f(L, static_cast<uint32_t>(k), rr_base[lane], max_depth, neg_dz,
+               thin != 0, wf, ops);
+      float* dst = walk_vals + (k * 32 + lane) * 3;
+      dst[0] = wf[0];
+      dst[1] = wf[1];
+      dst[2] = wf[2];
+    }
+  }
+  __syncthreads();
+  if (live && threadIdx.y == 0) {
+    // the coat's entrance reflection, counted n_samples times, plus the
+    // walks summed in order
+    const float nf = static_cast<float>(n_samples);
+    const float f_coat =
+        same_hemi ? nf * dielectric_f(L.alpha, L.wo, L.wi, L.eta, nullptr, ops)
+                  : 0.0f;
+    ops.fp32 += 2 + 6 + 3 * (n_samples - 1);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float sum = walk_vals[lane * 3 + c];
+      for (int k = 1; k < n_samples; ++k)
+        sum = sum + walk_vals[(k * 32 + lane) * 3 + c];
+      out[3 * i + c] = (f_coat + sum) / nf;
+    }
+  }
+  if (kCount) report(ops, ops_out);
+}
+
+// ---------------------------------------------------------------------------
+// sample: one walk a lane (glossy_diffuse.sample_plain)
+// ---------------------------------------------------------------------------
+
+// The seed after the draws of depths [from, max_depth): 2 at a Lambert
+// (even) depth, 3 at a dielectric (odd) one.
+__device__ __forceinline__ uint32_t skip_draws(uint32_t seed, int from,
+                                               int max_depth) {
+  for (int d = from; d < max_depth; ++d) {
+    lcg(seed);
+    lcg(seed);
+    if (d & 1) lcg(seed);
+  }
+  return seed;
+}
+
+template <bool kCount>
+__global__ void __launch_bounds__(kSampleThreads)
+    layered_sample_kernel(const int64_t* __restrict__ seed_in,
+                          const float* __restrict__ albedo,
+                          const float* __restrict__ rough,
+                          const float* __restrict__ wo_in,
+                          const float* __restrict__ eta, int n, int max_depth,
+                          float neg_dz, int thin,
+                          int64_t* __restrict__ seed_out,
+                          float* __restrict__ color_out,
+                          float* __restrict__ dir_out,
+                          float* __restrict__ pdf_out,
+                          uint8_t* __restrict__ flags_out,
+                          unsigned long long* __restrict__ ops_out) {
+  const int i = blockIdx.x * kSampleThreads + threadIdx.x;
+  Ops ops;
+  if (i < n) {
+    const Lane L = load_lane(seed_in, albedo, rough, wo_in, eta, i);
+    const bool flip = L.wo.z < 0.0f;  // two-sided
+    const V3 wo_up = flip ? neg(L.wo) : L.wo;
+    uint32_t seed = L.seed;
+
+    // entrance event at the coat
+    const DSample bs0 =
+        dielectric_sample<true, true, true>(seed, L.alpha, wo_up, L.eta, ops);
+    const bool bs0_ok = sample_ok(bs0);
+    const bool reflected = bs0_ok && !bs0.transmission;
+
+    // transmitted into the layer: the walk
+    bool walking = bs0_ok && bs0.transmission;
+    V3 w = bs0.dir;
+    const float f0 = bs0.color * fabsf(bs0.dir.z);
+    float f_val[3] = {f0, f0, f0};
+    float pdf_val = bs0.pdf;
+    bool specular_path = bs0.specular;
+    uint32_t seed_rr =
+        tea16(tea16(hash_key(wo_up.x), hash_key(wo_up.y)), seed);
+    bool done = false;
+    float out_color[3] = {0.0f, 0.0f, 0.0f};
+    V3 out_dir = {0.0f, 0.0f, 0.0f};
+    float out_pdf = 0.0f;
+    bool out_specular = false;
+
+    for (int depth = 0; depth < max_depth; ++depth) {
+      if (walking && depth > 3) {  // Russian roulette
+        ops.fp32 += 10;
+        const bool pdf_ok = pdf_val > kPdfMin;
+        const float rr_beta = pdf_ok ? amax3(f_val) / pdf_val : 1.0f;
+        const bool rr_on = rr_beta < kRRBeta;
+        const float q = clamp_min(1.0f - rr_beta, 0.0f);
+        const float u_rr = rnd(seed_rr, ops);
+        const bool die = rr_on && u_rr < q;
+        if (rr_on && !die) pdf_val = pdf_val * (1.0f - q);
+        walking = !die;
+      }
+      walking = walking && w.z != 0.0f;
+      if (!walking) {
+        seed = skip_draws(seed, depth, max_depth);
+        break;
+      }
+      // advance to the other interface
+      const float tr = transmittance(neg_dz, thin, w, ops);
+      f_val[0] = f_val[0] * tr;
+      f_val[1] = f_val[1] * tr;
+      f_val[2] = f_val[2] * tr;
+      ops.fp32 += 3;
+      V3 bs_dir;
+      float bs_color[3], bs_pdf;
+      bool bs_ok, bs_transmission, bs_specular;
+      if ((depth & 1) == 0) {  // bottom: Lambert reflection
+        const LSample bs = lambert_sample(seed, ops);
+        bool color_nz = false;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          bs_color[c] = L.alb[c] * kInvPi;
+          color_nz = color_nz || bs_color[c] != 0.0f;
+        }
+        ops.fp32 += 9;
+        bs_dir = bs.dir;
+        bs_pdf = bs.pdf;
+        bs_ok = bs.pdf > 0.0f && color_nz && bs.pdf != 0.0f &&
+                bs.dir.z != 0.0f;
+        bs_transmission = false;
+        bs_specular = false;
+      } else {  // top: the coat reflects back down or transmits out
+        const DSample bs = dielectric_sample<true, true, true>(
+            seed, L.alpha, neg(w), L.eta, ops);
+        bs_dir = bs.dir;
+        bs_color[0] = bs_color[1] = bs_color[2] = bs.color;
+        bs_pdf = bs.pdf;
+        bs_ok = sample_ok(bs);
+        bs_transmission = bs.transmission;
+        bs_specular = bs.specular;
+      }
+      if (!bs_ok) {
+        seed = skip_draws(seed, depth + 1, max_depth);
+        break;
+      }
+      ops.fp32 += 4;
+      f_val[0] = f_val[0] * bs_color[0];
+      f_val[1] = f_val[1] * bs_color[1];
+      f_val[2] = f_val[2] * bs_color[2];
+      pdf_val = pdf_val * bs_pdf;
+      specular_path = specular_path && bs_specular;
+      w = bs_dir;
+      if (bs_transmission) {  // exit through the top
+        out_color[0] = f_val[0];
+        out_color[1] = f_val[1];
+        out_color[2] = f_val[2];
+        out_dir = w;
+        out_pdf = pdf_val;
+        out_specular = specular_path;
+        done = true;
+        seed = skip_draws(seed, depth + 1, max_depth);
+        break;
+      }
+      // cosine after an in-layer scattering event
+      ops.fp32 += 3;
+      const float cos_b = fabsf(bs_dir.z);
+      f_val[0] = f_val[0] * cos_b;
+      f_val[1] = f_val[1] * cos_b;
+      f_val[2] = f_val[2] * cos_b;
+    }
+
+    V3 dir;
+    float pdf;
+    bool valid, reflection, specular;
+    if (reflected) {
+      out_color[0] = out_color[1] = out_color[2] = bs0.color;
+      dir = bs0.dir;
+      pdf = bs0.pdf;
+      valid = true;
+      reflection = true;
+      specular = bs0.specular;
+    } else {
+      dir = out_dir;
+      pdf = out_pdf;
+      valid = done;
+      reflection = wo_up.z * out_dir.z > 0.0f;
+      specular = out_specular;
+    }
+    if (flip) dir = neg(dir);
+    seed_out[i] = static_cast<int64_t>(seed);
+    color_out[3 * i] = out_color[0];
+    color_out[3 * i + 1] = out_color[1];
+    color_out[3 * i + 2] = out_color[2];
+    dir_out[3 * i] = dir.x;
+    dir_out[3 * i + 1] = dir.y;
+    dir_out[3 * i + 2] = dir.z;
+    pdf_out[i] = pdf;
+    flags_out[i] = valid;
+    flags_out[n + i] = reflection;
+    flags_out[2 * n + i] = !reflection;
+    flags_out[3 * n + i] = specular;
+    flags_out[4 * n + i] = !specular;
+  }
+  if (kCount) report(ops, ops_out);
+}
+
+size_t f_smem(int n_samples) {
+  return (static_cast<size_t>(n_samples) * 96 + 32) * sizeof(float);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Both entry points launch on `stream`, do not synchronise, and return
+// cudaGetLastError() (0 on success). seed: [n] int64 holding u32; albedo,
+// wo, wi, rgb, color, dir: [n, 3]; rough, eta, pdf: [n]; flags: [5, n]
+// bytes (valid, reflection, transmission, specular, glossy); f takes
+// n_samples <= 127 (its walks' values fill 48 KB of shared memory). neg_dz is
+// -|thickness| in float32, thin is 1 where |thickness| is at most the
+// smallest normal float32 (transmittance 1). ops: null, or two uint64
+// counters the kernel adds its FP32 operations and float64 calls to.
+int layered_f(const int64_t* seed, const float* albedo, const float* rough,
+              const float* wo, const float* wi, const float* eta, int n,
+              int n_samples, int max_depth, float neg_dz, int thin,
+              float* rgb, unsigned long long* ops, void* stream) {
+  if (n == 0) return 0;
+  const size_t smem = f_smem(n_samples);  // up to 48 KB: n_samples <= 127
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 block(32, n_samples < kFWarpsMax ? n_samples : kFWarpsMax);
+  const unsigned grid = static_cast<unsigned>((n + 31) / 32);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ops != nullptr)
+    layered_f_kernel<true><<<grid, block, smem, s>>>(
+        seed, albedo, rough, wo, wi, eta, n, n_samples, max_depth, neg_dz,
+        thin, rgb, ops);
+  else
+    layered_f_kernel<false><<<grid, block, smem, s>>>(
+        seed, albedo, rough, wo, wi, eta, n, n_samples, max_depth, neg_dz,
+        thin, rgb, ops);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int layered_sample(const int64_t* seed, const float* albedo,
+                   const float* rough, const float* wo, const float* eta,
+                   int n, int max_depth, float neg_dz, int thin,
+                   int64_t* seed_out, float* color, float* dir, float* pdf,
+                   uint8_t* flags, unsigned long long* ops, void* stream) {
+  if (n == 0) return 0;
+  const unsigned grid =
+      static_cast<unsigned>((n + kSampleThreads - 1) / kSampleThreads);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ops != nullptr)
+    layered_sample_kernel<true><<<grid, kSampleThreads, 0, s>>>(
+        seed, albedo, rough, wo, eta, n, max_depth, neg_dz, thin, seed_out,
+        color, dir, pdf, flags, ops);
+  else
+    layered_sample_kernel<false><<<grid, kSampleThreads, 0, s>>>(
+        seed, albedo, rough, wo, eta, n, max_depth, neg_dz, thin, seed_out,
+        color, dir, pdf, flags, ops);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

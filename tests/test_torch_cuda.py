@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from optixpathtracer_tpu_torch.bsdf import dispatch
+from optixpathtracer_tpu_torch.bsdf import glossy_diffuse as gd
 from optixpathtracer_tpu_torch.camera import Camera
 from optixpathtracer_tpu_torch.camera.camera import generate_rays
 from optixpathtracer_tpu_torch.diff import param_gradients
@@ -40,11 +41,11 @@ def cuda():
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the CUDA path of the dense, walk and packet engines to the
-    plain versions."""
+    """Route the CUDA path of the dense, walk and packet engines and of the
+    layered lobe to the plain versions."""
     saved = (dk.closest_kernel, dk.any_kernel, wk.candidates_kernel,
              wk.closest_kernel, wk.any_kernel, pk.packet_closest_kernel,
-             pk.packet_any_kernel)
+             pk.packet_any_kernel, gd.f_kernel, gd.sample_kernel)
     dk.closest_kernel = (lambda tris, boxes, n_live, *rays:
                          dk.closest_plain(tris, *rays))
     dk.any_kernel = (lambda tris, boxes, n_live, *rays:
@@ -58,12 +59,13 @@ def plain_kernels():
                                                  pk.packet_closest_plain)
     pk.packet_any_kernel = functools.partial(pk.plain_launch,
                                              pk.packet_any_plain)
+    gd.f_kernel, gd.sample_kernel = gd.f_plain, gd.sample_plain
     try:
         yield
     finally:
         (dk.closest_kernel, dk.any_kernel, wk.candidates_kernel,
          wk.closest_kernel, wk.any_kernel, pk.packet_closest_kernel,
-         pk.packet_any_kernel) = saved
+         pk.packet_any_kernel, gd.f_kernel, gd.sample_kernel) = saved
 
 
 def _sphere_floor_rays(device):
@@ -904,3 +906,131 @@ def test_sorted_frames_equal_unsorted(diffuse_scene, kw):
     assert wk.closest_kernel.launches > before
     want = path.render_sample(scene, *params, 64, 64, 0, 3, **flags)
     assert img.mean() > 0.005 and torch.equal(img, want)
+
+
+# ---------------------------------------------------------------------------
+# The layered glossy-diffuse lobe's kernels
+# ---------------------------------------------------------------------------
+
+LOBE_LANES = 1 << 20
+
+
+def _layered_inputs(device, seed):
+    """LOBE_LANES lanes of lobe inputs drawn with numpy: uniform directions
+    (wo.z < 0 and opposite-hemisphere wi on about half the lanes each);
+    roughness 0 (the smooth path) on 1/8 of the lanes, about 0.0316 (alpha
+    at the 1e-3 smooth edge, both sides) on 1/8, else in (0, 1]; eta in
+    [1, 2] with 1.0 on 1/8; albedo with one zero channel on 1/8 and all
+    zero on 1/16, and in [0.02, 0.2] on 1/4, where a walk's throughput
+    falls below 0.25 and Russian roulette fires."""
+    r = np.random.default_rng(seed)
+
+    def unit():
+        v = r.normal(size=(LOBE_LANES, 3))
+        return (v / np.linalg.norm(v, axis=1, keepdims=True)).astype(
+            np.float32)
+
+    rough = r.uniform(1e-3, 1.0, LOBE_LANES).astype(np.float32)
+    rough[0::8] = 0.0
+    rough[1::8] = r.uniform(0.0312, 0.0320, rough[1::8].shape)
+    eta = r.uniform(1.0, 2.0, LOBE_LANES).astype(np.float32)
+    eta[2::8] = 1.0
+    albedo = r.uniform(0.0, 1.0, (LOBE_LANES, 3)).astype(np.float32)
+    albedo[3::8, r.integers(0, 3)] = 0.0
+    albedo[4::16] = 0.0
+    albedo[5::4] = r.uniform(0.02, 0.2, albedo[5::4].shape)
+    seeds = r.integers(0, 2**32, LOBE_LANES, dtype=np.uint64).astype(
+        np.int64)
+    t = functools.partial(torch.as_tensor, device=device)
+    return dict(seed=t(seeds), albedo=t(albedo), roughness=t(rough),
+                wo=t(unit()), wi=t(unit()), eta=t(eta))
+
+
+def _assert_bits_equal(got, want, what):
+    """Equal bit for bit (NaN and the sign of zero included)."""
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    bad = got != want
+    if bad.dim() > 1:
+        bad = bad.flatten(1).any(dim=1)
+    assert not bad.any(), (f"{what}: {int(bad.sum())} lanes differ, first "
+                           f"{torch.nonzero(bad)[:4].flatten().tolist()}")
+
+
+@pytest.mark.parametrize("kw", [
+    {},
+    {"n_samples": 11, "max_depth": 7},
+    {"n_samples": 2, "max_depth": 12, "thickness": 0.0},
+])
+def test_layered_lobe_kernels_equal_plain(cuda, kw):
+    """f and sample through the kernels equal the plain lobe bit for bit on
+    2^20 lanes: rgb and the unchanged seed; seed, color, direction, pdf and
+    every flag. The defaults, more walks than a block's 8 warps with a
+    shorter walk, and a thin layer with a longer one."""
+    x = _layered_inputs(cuda, 15 + len(kw))
+    f_args = (x["seed"], x["albedo"], x["roughness"], x["wo"], x["wi"],
+              x["eta"])
+    f_kw = {"n_samples": gd.N_SAMPLES, "max_depth": gd.MAX_DEPTH,
+            "thickness": gd.THICKNESS, **kw}
+    s_kw = {k: v for k, v in f_kw.items() if k != "n_samples"}
+    launches = gd.f_kernel.launches, gd.sample_kernel.launches
+    with torch.no_grad():
+        seed_k, f_k = gd.f(*f_args, **f_kw)
+        seed_p, f_p = gd.f_plain(*f_args, **f_kw)
+        sk = gd.sample(*f_args[:4], x["eta"], **s_kw)
+        sp = gd.sample_plain(*f_args[:4], x["eta"], **s_kw)
+    torch.cuda.synchronize()
+    assert (gd.f_kernel.launches, gd.sample_kernel.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    assert seed_k is x["seed"] and torch.equal(seed_p, x["seed"])
+    _assert_bits_equal(f_k, f_p, "f rgb")
+    assert (f_k > 0).any(dim=1).float().mean() > 0.2
+    _assert_bits_equal(sk[0], sp[0], "sample seed")
+    for field in sk[1]._fields:
+        _assert_bits_equal(getattr(sk[1], field), getattr(sp[1], field),
+                           f"sample {field}")
+    valid = sk[1].valid
+    assert 0.2 < float(valid.float().mean()) < 1.0
+    assert sk[1].specular[valid].any() and sk[1].glossy[valid].any()
+    assert sk[1].reflection[valid].all()  # the Lambert base never transmits
+
+
+def test_layered_lobe_kernel_launch_errors_raise(cuda):
+    x = _layered_inputs(cuda, 3)
+    with pytest.raises(ValueError):
+        gd.f_kernel(x["seed"].int(), x["albedo"], x["roughness"], x["wo"],
+                    x["wi"], x["eta"])
+    with pytest.raises(ValueError):
+        gd.sample_kernel(x["seed"], x["albedo"].cpu(), x["roughness"],
+                         x["wo"], x["eta"])
+    with pytest.raises(ValueError):
+        gd.f_kernel(x["seed"], x["albedo"], x["roughness"], x["wo"],
+                    x["wi"], x["eta"], n_samples=0)
+
+
+def test_layered_frame_lobe_kernels_equal_plain(cuda):
+    """A 256x256 `layered` frame (2 bounces) through render_chunk with the
+    kernels equals the plain versions' bit for bit; each lobe kernel
+    launches once a bounce there, and not at all under param_gradients,
+    where autograd records the lobe."""
+    from optixpathtracer_tpu_torch.scene.flatten import scene_active_lobes
+    model, camera, lights = PRESETS["layered"]()
+    scene = flatten_model(model, lights, device=cuda)
+    params = camera.raygen_params(256, 256, cuda)
+    kw = dict(active_lobes=scene_active_lobes(scene), use_textures=False)
+    accum = torch.zeros(256, 256, 3, device=cuda)
+    before = gd.f_kernel.launches, gd.sample_kernel.launches
+    img = path.render_chunk(scene, *params, 256, 256, accum, 0, 1, 2, **kw)
+    assert (gd.f_kernel.launches - before[0],
+            gd.sample_kernel.launches - before[1]) == (2, 2)
+    with plain_kernels():
+        want = path.render_chunk(scene, *params, 256, 256, accum, 0, 1, 2,
+                                 **kw)
+    assert img.mean() > 0.005 and torch.equal(img, want)
+
+    before = gd.f_kernel.launches, gd.sample_kernel.launches
+    grads = param_gradients(scene, camera.raygen_params(32, 32, cuda), 32,
+                            32, [0], fields=("mat_albedo", "mat_roughness"),
+                            max_bounces=2)
+    assert grads["mat_albedo"].abs().max() > 0
+    assert (gd.f_kernel.launches, gd.sample_kernel.launches) == before

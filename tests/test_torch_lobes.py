@@ -409,6 +409,41 @@ def test_glossy_diffuse_f_properties():
     np.testing.assert_allclose(f_up.numpy(), f_dn.numpy(), atol=1e-6)
 
 
+def test_glossy_diffuse_kernel_routing(monkeypatch):
+    """The layered lobe takes its CUDA kernels only for CUDA inputs that
+    autograd does not record: never on the CPU; with the device check made
+    to answer CUDA, not while grad mode is on and an input requires grad,
+    and otherwise yes. f and sample follow the predicate."""
+    n = 8
+    wo = normalize(torch.tensor([0.3, 0.1, 0.9])).expand(n, 3)
+    rough = _const(n, 0.4).requires_grad_()
+    args = (torch.arange(n), torch.full((n, 3), 0.7), rough, wo)
+    assert not glossy_diffuse.uses_kernel(wo, wo, *args[:3], 1.5)
+    with torch.no_grad():
+        assert not glossy_diffuse.uses_kernel(wo, *args[:3], 1.5)
+
+    monkeypatch.setattr(glossy_diffuse, "_on_cuda", lambda x: True)
+    assert not glossy_diffuse.uses_kernel(wo, wo, *args[:3], 1.5)
+    assert glossy_diffuse.uses_kernel(wo, wo, *args[:2], rough.detach(), 1.5)
+    with torch.no_grad():
+        assert glossy_diffuse.uses_kernel(wo, wo, *args[:3], 1.5)
+    with torch.enable_grad():
+        assert not glossy_diffuse.uses_kernel(wo, *args[:3], _const(n, 1.5))
+
+    calls = []
+    monkeypatch.setattr(glossy_diffuse, "f_kernel",
+                        lambda *a: calls.append("f") or (a[0], None))
+    monkeypatch.setattr(glossy_diffuse, "sample_kernel",
+                        lambda *a: calls.append("sample") or (a[0], None))
+    glossy_diffuse.f(*args, wo)
+    glossy_diffuse.sample(*args)
+    assert calls == []  # rough requires grad: the plain versions ran
+    with torch.no_grad():
+        glossy_diffuse.f(*args, wo)
+        glossy_diffuse.sample(*args)
+    assert calls == ["f", "sample"]
+
+
 def test_metallic_mix_resolution():
     n = 4096
     mat = dispatch.MaterialParams(
