@@ -35,13 +35,21 @@ class Context:
     desc: dict              # the plain scene description
 
 
-def scene_description(config: dict, folder=HERE) -> dict:
+def scene_module(config: dict, folder=HERE):
+    """The module `scenes/<config["scenes"]>.py`. It defines `build(config)`,
+    the plain scene description of a configuration from the
+    configuration's own keys, and `CPU_CUT`, the keys that cut any of its
+    configurations to a size the CPU tests render in seconds."""
     path = os.path.join(folder, "scenes", f"{config['scenes']}.py")
     spec = importlib.util.spec_from_file_location(
         f"portbench_scenes_{config['scenes']}", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.build(config["scene"], tuple(config["segments"]))
+    return module
+
+
+def scene_description(config: dict, folder=HERE) -> dict:
+    return scene_module(config, folder).build(config)
 
 
 def verdict(numbers: dict, limits: dict):

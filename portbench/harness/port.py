@@ -9,21 +9,26 @@ import numpy as np
 
 def scene_and_camera(desc: dict, device):
     """The port's flattened SceneData and Camera of a plain scene
-    description (`portbench/scenes/`)."""
+    description (`portbench/scenes/`): its meshes (normals and uvs may be
+    None), their materials with any texture indices, and its textures."""
     from optixpathtracer_tpu_torch.camera import Camera
     from optixpathtracer_tpu_torch.scene import (Material, Mesh, Model,
-                                                 PointLight, flatten_model)
+                                                 PointLight, Texture,
+                                                 flatten_model)
     meshes = [Mesh(positions=m["positions"], indices=m["indices"],
-                   normals=m["normals"], uvs=m["uvs"],
+                   normals=m.get("normals"), uvs=m.get("uvs"),
                    material=Material(**m["material"]))
               for m in desc["meshes"]]
+    textures = [Texture(pixels=np.asarray(t, np.float32))
+                for t in desc.get("textures") or []]
     lights = [PointLight(np.asarray(p), np.asarray(c))
               for p, c in desc["lights"]]
     cam = desc["camera"]
     camera = Camera(position=np.asarray(cam["position"], np.float64),
                     rotation=np.asarray(cam["rotation"], np.float64),
                     fov_degrees=float(cam["fov_degrees"]))
-    return flatten_model(Model(meshes=meshes), lights, device=device), camera
+    model = Model(meshes=meshes, textures=textures)
+    return flatten_model(model, lights, device=device), camera
 
 
 def render_options(scene) -> dict:

@@ -4,7 +4,10 @@
 configurations and traffic, and the metrics. Each part sits in a file of
 its own under the benchmark's folder, found by its name:
 
-    configs/<config>.json     the scene: kind, tessellation, bounces
+    configs/<config>.json     the scene: its module, its keys, bounces
+    scenes/<module>.py        the plain scene description a config's
+                              keys build (meshes, materials, textures,
+                              lights, camera) and its cut for CPU tests
     traffic/<traffic>.json    the mix: its kind and parameters
     traffic/<kind>.py         the driver of every mix of that kind
     workloads/<cell>.json     the cell's check: sample sizes and limits

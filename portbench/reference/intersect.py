@@ -7,6 +7,12 @@ that both sides test gives the same t on both. The closest hit is the
 least t; on an exact tie the lowest triangle id (mesh order) wins. The
 bounding-sphere cull only skips work: its margin keeps every triangle the
 test could accept.
+
+The tests run in blocks of at most TRIS_PER_BLOCK triangles of one mesh
+and as many rays as keep a block within PAIRS_PER_BLOCK (ray, triangle)
+pairs, so that no mesh size can exhaust the device. Blocks are taken in
+order of triangle id and a later block wins only by a strictly lower t,
+so the blocking changes no id and no t.
 """
 from __future__ import annotations
 
@@ -15,7 +21,8 @@ import torch
 from .pmath import cross, dot
 
 EPS_DET = 1e-12
-RAYS_PER_BLOCK = 1 << 16
+TRIS_PER_BLOCK = 1 << 10
+PAIRS_PER_BLOCK = 1 << 26
 MARGIN = 1e-3
 
 
@@ -53,14 +60,21 @@ def _near(o, d, tmin, tmax, centre, radius):
     return (dot(p, p) <= r * r) & (tmax > tmin)
 
 
-def _candidates(scene, o, d, tmin, tmax):
-    """(first id, v0, e1, e2, rays) per mesh, rays as an index tensor."""
+def _blocks(scene, o, d, tmin, tmax):
+    """(first id, v0, e1, e2, rays) per block, in triangle id order: at
+    most TRIS_PER_BLOCK triangles of a mesh whose sphere the rays pass
+    near, and at most PAIRS_PER_BLOCK // triangles of those rays (an index
+    tensor)."""
     for start, end, centre, radius in scene.groups:
-        rays = torch.nonzero(_near(o, d, tmin, tmax, centre, radius))[:, 0]
-        if rays.numel():
-            sl = slice(start, end)
-            yield (start, scene.tri_v0[sl], scene.tri_e1[sl],
-                   scene.tri_e2[sl], rays)
+        near = torch.nonzero(_near(o, d, tmin, tmax, centre, radius))[:, 0]
+        if not near.numel():
+            continue
+        for first in range(start, end, TRIS_PER_BLOCK):
+            sl = slice(first, min(first + TRIS_PER_BLOCK, end))
+            step = PAIRS_PER_BLOCK // (sl.stop - sl.start)
+            for b in range(0, near.numel(), step):
+                yield (first, scene.tri_v0[sl], scene.tri_e1[sl],
+                       scene.tri_e2[sl], near[b:b + step])
 
 
 def _bounds(o, tmin, tmax):
@@ -74,22 +88,21 @@ def _bounds(o, tmin, tmax):
 
 @torch.no_grad()
 def closest(scene, o, d, tmin, tmax):
-    """(tri_id int64 [R], -1 on a miss) of the closest hit."""
+    """(tri_id int64 [R], -1 on a miss; t [R], inf on a miss) of the
+    closest hit."""
     tmin, tmax = _bounds(o, tmin, tmax)
     best_t = torch.full_like(tmax, float("inf"))
     best_id = torch.full(tmax.shape, -1, dtype=torch.int64, device=o.device)
-    for start, v0, e1, e2, rays in _candidates(scene, o, d, tmin, tmax):
+    for first, v0, e1, e2, r in _blocks(scene, o, d, tmin, tmax):
+        t, hit = _mt(o[r], d[r], v0, e1, e2, tmin[r], tmax[r])
+        t = torch.where(hit, t, float("inf"))
+        ct = t.amin(dim=1)
         ids = torch.arange(v0.shape[0], device=o.device)
-        for b in range(0, rays.numel(), RAYS_PER_BLOCK):
-            r = rays[b:b + RAYS_PER_BLOCK]
-            t, hit = _mt(o[r], d[r], v0, e1, e2, tmin[r], tmax[r])
-            t = torch.where(hit, t, float("inf"))
-            ct = t.amin(dim=1)
-            first = torch.where(t == ct[:, None], ids, v0.shape[0]).amin(1)
-            better = ct < best_t[r]  # strict: earlier meshes win ties
-            best_t[r] = torch.where(better, ct, best_t[r])
-            best_id[r] = torch.where(better, start + first, best_id[r])
-    return best_id
+        low = torch.where(t == ct[:, None], ids, v0.shape[0]).amin(1)
+        better = ct < best_t[r]  # strict: lower ids win ties
+        best_t[r] = torch.where(better, ct, best_t[r])
+        best_id[r] = torch.where(better, first + low, best_id[r])
+    return best_id, best_t
 
 
 @torch.no_grad()
@@ -97,11 +110,9 @@ def occluded(scene, o, d, tmin, tmax):
     """True where some triangle blocks the segment (tmin, tmax)."""
     tmin, tmax = _bounds(o, tmin, tmax)
     blocked = torch.zeros(tmax.shape, dtype=torch.bool, device=o.device)
-    for _, v0, e1, e2, rays in _candidates(scene, o, d, tmin, tmax):
-        for b in range(0, rays.numel(), RAYS_PER_BLOCK):
-            r = rays[b:b + RAYS_PER_BLOCK]
-            _, hit = _mt(o[r], d[r], v0, e1, e2, tmin[r], tmax[r])
-            blocked[r] = blocked[r] | hit.any(dim=1)
+    for _, v0, e1, e2, r in _blocks(scene, o, d, tmin, tmax):
+        _, hit = _mt(o[r], d[r], v0, e1, e2, tmin[r], tmax[r])
+        blocked[r] = blocked[r] | hit.any(dim=1)
     return blocked
 
 

@@ -4,10 +4,14 @@ BSDF sampling and the throughput update, for any set of (pixel, frame)
 lanes, and the running-mean accumulation and the material-fitting step
 built on it.
 
-The semantics are those of the program's `integrate/path.py` with its
-options at their defaults (no ray or material sort, no textures, no alpha
-cutout, interpolated shading normals), written out again in plain PyTorch
-over the frozen lobes of this folder and the intersection of
+The semantics are those of the program's `integrate/path.py` with the
+options `render` derives from the scene (no ray or material sort; albedo
+textures where a material has one; alpha cutout where a used albedo
+texture has holes, `reference/cutout.py`; the geometric normal for
+shading where every corner normal is its triangle's, else interpolated
+normals), written out again in plain PyTorch over the frozen lobes of this
+folder (diffuse, conductor, dielectric, glossy-diffuse, and metallic-mix
+as conductor or glossy-diffuse by one draw a hit) and the intersection of
 `reference/intersect.py`. Every pixel's path is independent of the
 others, so lanes are worked in blocks of any size.
 
@@ -22,12 +26,16 @@ from typing import NamedTuple
 
 import torch
 
+from . import conductor as _conductor
+from . import cutout
+from . import dielectric as _dielectric
 from . import diffuse as _diffuse
 from . import glossy_diffuse as _glossy
 from . import intersect, rng
 from .base import BSDFSample, where_sample
 from .pmath import (abs_cos_theta, build_tangent_space, cross, div, dot,
                     length, length_sqr, normalize, to_local, to_world)
+from .textures import sample_bilinear, srgb_to_linear
 
 RAY_TMAX = 100.0
 SHADOW_OFFSET = 1e-3
@@ -58,9 +66,9 @@ def lowered(scene, q: Precision):
     """The scene with every float array passed through q."""
     return scene.replace(**{
         k: q(getattr(scene, k)) for k in (
-            "tri_v0", "tri_e1", "tri_e2", "tri_normals", "mat_albedo",
-            "mat_metallic", "mat_roughness", "mat_ior", "light_pos",
-            "light_color")})
+            "tri_v0", "tri_e1", "tri_e2", "tri_normals", "tri_uvs",
+            "mat_albedo", "mat_metallic", "mat_roughness", "mat_ior",
+            "textures", "light_pos", "light_color")})
 
 
 def active_lobes(scene):
@@ -69,7 +77,7 @@ def active_lobes(scene):
     for t in set(int(t) for t in scene.mat_type.cpu().tolist()):
         lobes.update((CONDUCTOR, GLOSSY_DIFFUSE) if t == METALLIC_MIX
                      else (t,))
-    unknown = lobes - {DIFFUSE, GLOSSY_DIFFUSE}
+    unknown = lobes - {DIFFUSE, CONDUCTOR, DIELECTRIC, GLOSSY_DIFFUSE}
     if unknown:
         raise NotImplementedError(f"the reference has no lobe {unknown}")
     return tuple(sorted(lobes))
@@ -87,6 +95,12 @@ def _mirror_z(v):
     return torch.cat([v[..., :2], -v[..., 2:]], dim=-1)
 
 
+# The program's dispatch (`bsdf/dispatch.py`): every lobe present is
+# evaluated on every lane in this order and lane-selected. The one-sided
+# lobes (diffuse, conductor) see wo and wi mirrored through the tangent
+# plane where wo.z < 0; the dielectric and the layered lobe take the true
+# orientation. The dielectric is tinted by the albedo.
+
 def bsdf_f(seed, mat, wo, wi, lobes):
     """BSDF value per lane; only the layered lobe hands its seed on."""
     t = mat.mat_type[..., None]
@@ -97,6 +111,12 @@ def bsdf_f(seed, mat, wo, wi, lobes):
     if DIFFUSE in lobes:
         out = torch.where(t == DIFFUSE, _diffuse.f(mat.albedo, wo_m, wi_m),
                           out)
+    if CONDUCTOR in lobes:
+        out = torch.where(t == CONDUCTOR, _conductor.f(
+            mat.albedo, mat.roughness, wo_m, wi_m), out)
+    if DIELECTRIC in lobes:
+        out = torch.where(t == DIELECTRIC, _dielectric.f(
+            mat.roughness, wo, wi, eta=mat.ior) * mat.albedo, out)
     if GLOSSY_DIFFUSE in lobes:
         seed, f_g = _glossy.f(seed, mat.albedo, mat.roughness, wo, wi,
                               eta=mat.ior)
@@ -105,20 +125,44 @@ def bsdf_f(seed, mat, wo, wi, lobes):
 
 
 def bsdf_sample(seed, mat, wo, lobes):
+    """BSDF sample per lane; every lobe present hands its seed on."""
     t = mat.mat_type
     flip = (wo[..., 2] < 0.0)[..., None]
     wo_m = torch.where(flip, _mirror_z(wo), wo)
+
+    def unflip(s):
+        return s._replace(direction=torch.where(flip, _mirror_z(s.direction),
+                                                s.direction))
+
     out = BSDFSample.invalid(wo.shape[:-1], wo.device)
     if DIFFUSE in lobes:
         seed, s = _diffuse.sample(seed, mat.albedo, wo_m)
-        s = s._replace(direction=torch.where(flip, _mirror_z(s.direction),
-                                             s.direction))
-        out = where_sample(t == DIFFUSE, s, out)
+        out = where_sample(t == DIFFUSE, unflip(s), out)
+    if CONDUCTOR in lobes:
+        seed, s = _conductor.sample(seed, mat.albedo, mat.roughness, wo_m)
+        out = where_sample(t == CONDUCTOR, unflip(s), out)
+    if DIELECTRIC in lobes:
+        seed, s = _dielectric.sample(seed, mat.roughness, wo, eta=mat.ior)
+        out = where_sample(t == DIELECTRIC,
+                           s._replace(color=s.color * mat.albedo), out)
     if GLOSSY_DIFFUSE in lobes:
         seed, s = _glossy.sample(seed, mat.albedo, mat.roughness, wo,
                                  eta=mat.ior)
         out = where_sample(t == GLOSSY_DIFFUSE, s, out)
     return seed, out
+
+
+def albedo_at(scene, mat_id, albedo, u, v, tri_id):
+    """The albedo times the decoded albedo texture at the hit's uv, where
+    the material has one."""
+    tri_uv = scene.tri_uvs[tri_id]
+    w0 = 1.0 - u - v
+    uv = w0 * tri_uv[:, 0] + u * tri_uv[:, 1] + v * tri_uv[:, 2]
+    tex_id = scene.mat_albedo_tex[mat_id]
+    texel = srgb_to_linear(sample_bilinear(scene.textures, tex_id,
+                                           uv[..., 0], uv[..., 1]))
+    return torch.where((tex_id >= 0)[..., None], albedo * texel[..., :3],
+                       albedo)
 
 
 def surface(seed, scene, d, tri_id, u, v, back_face):
@@ -135,15 +179,21 @@ def surface(seed, scene, d, tri_id, u, v, back_face):
     position = scene.tri_v0[safe] + u * e1 + v * e2
     ng = normalize(cross(e1, e2))
     ng = torch.where(dot(wo, ng)[..., None] < 0.0, -ng, ng)
-    tri_n = scene.tri_normals[safe]
-    ns = normalize(w0 * tri_n[:, 0] + u * tri_n[:, 1] + v * tri_n[:, 2])
-    ns = torch.where(ns.abs().sum(dim=-1, keepdim=True) < 1e-12, ng, ns)
-    ns = torch.where(dot(ng, ns)[..., None] < 0.0, -ns, ns)
-    ns = normalize(ns)
+    if scene.flat_shading:
+        ns = ng
+    else:
+        tri_n = scene.tri_normals[safe]
+        ns = normalize(w0 * tri_n[:, 0] + u * tri_n[:, 1] + v * tri_n[:, 2])
+        ns = torch.where(ns.abs().sum(dim=-1, keepdim=True) < 1e-12, ng, ns)
+        ns = torch.where(dot(ng, ns)[..., None] < 0.0, -ns, ns)
+        ns = normalize(ns)
     back = back_face[..., None]
     ng = torch.where(back, -ng, ng)
     ns = torch.where(back, -ns, ns)
-    mat = Mat(scene.mat_albedo[mat_id], scene.mat_metallic[mat_id],
+    albedo = scene.mat_albedo[mat_id]
+    if bool((scene.mat_albedo_tex >= 0).any()):
+        albedo = albedo_at(scene, mat_id, albedo, u, v, safe)
+    mat = Mat(albedo, scene.mat_metallic[mat_id],
               scene.mat_roughness[mat_id], scene.mat_ior[mat_id],
               scene.mat_type[mat_id])
     tangent, bitangent = build_tangent_space(ns)
@@ -165,10 +215,11 @@ def trace(scene, o, d, seed, bounces, lobes, q=FP32):
     n_lights = scene.light_pos.shape[0]
     if n_lights == 0:
         raise NotImplementedError("the reference traces scenes with lights")
+    query = cutout if cutout.uses_alpha_cutout(scene) else intersect
     for bounce in range(bounces):
         tmax = (torch.where(alive, RAY_TMAX, -1.0) if bounce else
                 torch.full((r,), RAY_TMAX, device=o.device))
-        tri = intersect.closest(scene, o.detach(), d.detach(), 0.0, tmax)
+        tri, _ = query.closest(scene, o.detach(), d.detach(), 0.0, tmax)
         _, u, v, hit, back = intersect.refine(scene, o, d, tri, tmax)
         alive = alive & hit
         seed, pos, ng, frame, wo_local, mat = surface(seed, scene, d, tri, u,
@@ -187,9 +238,8 @@ def trace(scene, o, d, seed, bounces, lobes, q=FP32):
         wl = normalize(to_light)
         toward = torch.where(dot(wl, ng) < 0.0, -1.0, 1.0)
         shadow_o = pos + (SHADOW_OFFSET * toward)[..., None] * ng
-        blocked = intersect.occluded(scene, shadow_o.detach(), wl.detach(),
-                                     0.0, torch.where(alive, dist,
-                                                      -1.0).detach())
+        blocked = query.occluded(scene, shadow_o.detach(), wl.detach(), 0.0,
+                                 torch.where(alive, dist, -1.0).detach())
         visible = ~blocked & alive
         wl_local = to_local(*frame, wl)
         seed, f_val = bsdf_f(seed, mat, wo_local, wl_local, lobes)

@@ -5,9 +5,11 @@ a 6 x 6 grid of UV spheres between coloured walls, four point lights and
 the front camera. Kept here so that a later change to the port's preset
 cannot move the benchmark's inputs.
 
-`build(kind, segments)` returns a dict of numpy arrays and numbers only;
-`portbench/harness/port.py` turns it into the port's Model and Camera, and
-`portbench/reference/scene.py` flattens it on its own.
+`build(config)` returns a dict of numpy arrays and numbers only, from the
+configuration's keys `scene` (the material kind) and `segments` (the
+sphere tessellation); `portbench/harness/port.py` turns it into the
+port's Model and Camera, and `portbench/reference/scene.py` flattens it on
+its own. The CPU tests cut a configuration by `CPU_CUT`.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ GEOMETRY = {
         light_scale=0.2263),
 }
 MAT_TYPE = {"diffuse": "diffuse", "layered": "glossy_diffuse"}
+CPU_CUT = {"segments": [4, 8]}
 
 # the front camera, Blender convention (procedural.py _CAM_FRONT)
 CAM_BLENDER_POS = (3.85382, 0.0, 1.0)
@@ -104,12 +107,13 @@ def quad(corner, edge_u, edge_v, material):
                 material=material)
 
 
-def build(kind: str, segments=(12, 24)) -> dict:
+def build(config: dict) -> dict:
     """The scene of one material kind: {"meshes": [mesh dicts], "lights":
     [(position float64[3], colour float32[3])], "camera": {"position",
     "rotation" (engine-space degrees), "fov_degrees"}}. Each mesh dict has
     positions, indices, normals, uvs and a material dict (base_color,
     metallic, roughness, ior, mat_type)."""
+    kind, segments = config["scene"], tuple(config["segments"])
     g = GEOMETRY[kind]
     mat_type = MAT_TYPE[kind]
     meshes = []

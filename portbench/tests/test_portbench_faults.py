@@ -67,3 +67,34 @@ def test_fit_fault_fails(tiny, monkeypatch, fault):
     monkeypatch.setattr(dist, "material_grad_step", step)
     r = _run(tiny, "layered.fit-512")
     assert not r["correct"], r["checks"]
+
+
+def _conductor_as_glossy(shade):
+    orig = shade.surface
+
+    def surface(*a, **k):
+        seed, pos, ng, frame, wo, mat = orig(*a, **k)
+        t = torch.where(mat.mat_type == shade.CONDUCTOR,
+                        shade.GLOSSY_DIFFUSE, mat.mat_type)
+        return seed, pos, ng, frame, wo, mat._replace(
+            mat_type=t.to(torch.int32))
+    return surface
+
+
+@pytest.mark.parametrize("fault", ["ignores_alpha", "drops_albedo_texture",
+                                   "conductor_as_glossy"])
+def test_reference_fault_fails(tiny_textured, monkeypatch, fault):
+    """A reference without one of the features the textured cell uses
+    does not pass the program: each feature is checked."""
+    from conftest import TEXTURED_CELL
+    from portbench.reference import cutout, shade
+    assert _run(tiny_textured, TEXTURED_CELL)["correct"]
+    if fault == "ignores_alpha":
+        monkeypatch.setattr(cutout, "uses_alpha_cutout", lambda s: False)
+    elif fault == "drops_albedo_texture":
+        monkeypatch.setattr(shade, "albedo_at",
+                            lambda scene, mat_id, albedo, *a: albedo)
+    else:
+        monkeypatch.setattr(shade, "surface", _conductor_as_glossy(shade))
+    r = _run(tiny_textured, TEXTURED_CELL)
+    assert not r["correct"], r["checks"]

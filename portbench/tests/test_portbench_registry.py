@@ -58,3 +58,44 @@ def test_new_files_make_a_new_cell(tiny):
     r = driver.run_cell(cell, reg, SEED, 0.2, False, torch.device("cpu"),
                         time.perf_counter(), log=lambda m: None)
     assert set(r["metrics"]) == {"mrays_s", "setup_s"}
+
+
+def _file_digests(folder):
+    out = {}
+    for base, _, names in os.walk(folder):
+        for name in names:
+            path = os.path.join(base, name)
+            if name != "BENCHMARK.json" and "__pycache__" not in path:
+                with open(path, "rb") as f:
+                    out[os.path.relpath(path, folder)] = hash(f.read())
+    return out
+
+
+def test_new_files_make_a_textured_cell(tiny):
+    """A scene of its own shape, with textures, alpha holes and all five
+    material types, comes in by new files and entries alone, and the
+    reference checks it."""
+    from conftest import TEXTURED_CELL, add_files_only_cell
+    from portbench.harness import port
+    before = _file_digests(tiny.folder)
+    reg = add_files_only_cell(tiny)
+    after = _file_digests(tiny.folder)
+    assert {k: after[k] for k in before} == before
+    assert len(after) > len(before)
+
+    cell = reg.cell(TEXTURED_CELL)
+    desc = driver.scene_description(cell.config, reg.folder)
+    sizes = {t.shape[:2] for t in desc["textures"]}
+    assert len(sizes) == 2 and (256, 256) not in sizes
+    assert {m["material"]["mat_type"] for m in desc["meshes"]} == {
+        "diffuse", "conductor", "dielectric", "glossy_diffuse",
+        "metallic_mix"}
+    scene, _ = port.scene_and_camera(desc, torch.device("cpu"))
+    options = port.render_options(scene)
+    assert options["use_textures"] and options["use_alpha_cutout"]
+    assert options["active_lobes"] == (0, 1, 2, 3)
+
+    r = driver.run_cell(cell, reg, SEED, 0.2, False, torch.device("cpu"),
+                        time.perf_counter(), log=lambda m: None)
+    assert r["correct"] and r["failed"] == 0, r["checks"]
+    assert set(r["metrics"]) == {"mrays_s", "setup_s"}
