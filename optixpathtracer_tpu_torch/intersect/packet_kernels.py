@@ -382,7 +382,7 @@ def intersect_closest_raw(scene, o, d, tmin=0.0, tmax=100.0,
         scene, o, d, tmin, tmax, block_rays)
     args = (scene.walk_tris, scene.walk_sub_box, cand, tnear, count, *rays,
             block_rays)
-    with spans.span(spans.ISECT_KERNEL):
+    with spans.span(spans.ISECT_KERNEL), spans.span(spans.PACKET):
         if rays[0].is_cuda:
             t, tri_id = packet_closest_kernel(*args)
         else:
@@ -404,7 +404,7 @@ def intersect_any(scene, o, d, tmin=0.0, tmax=100.0, block_rays=BLOCK_RAYS):
         scene, o, d, tmin, tmax, block_rays)
     args = (scene.walk_tris, scene.walk_sub_box, cand, tnear, count, *rays,
             block_rays)
-    with spans.span(spans.ISECT_KERNEL):
+    with spans.span(spans.ISECT_KERNEL), spans.span(spans.PACKET):
         if rays[0].is_cuda:
             blocked = packet_any_kernel(*args)
         else:

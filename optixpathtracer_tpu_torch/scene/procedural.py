@@ -486,7 +486,7 @@ def scene_hall(detail: float = 1.0):
     """The flagship heavyweight scene: a Sponza-scale textured colonnade
     hall (reference flagship Scene2/6 loads the real Sponza glTF,
     `main.cpp:21-30,69-78`; the asset isn't shipped, so this builds an
-    equivalent-scale stand-in procedurally). At detail=1.0 it is ~390k
+    equivalent-scale stand-in procedurally). At detail=1.0 it is 338,270
     triangles across all five material types + three textures (checker
     floor via albedo texture, marble columns, alpha-cutout foliage): on
     the card its 1,322 walk chunks route secondary bounces to the packet
@@ -583,7 +583,7 @@ PRESETS = {
     "dielectric": lambda: scene_material_test("dielectric"),
     "dielectric20": lambda: scene_material_test("dielectric20"),
     "layered": lambda: scene_material_test("layered"),
-    # flagship heavyweight scene (Sponza-scale stand-in, ~390k tris)
+    # flagship heavyweight scene (Sponza-scale stand-in, 338,270 tris)
     "hall": scene_hall,
     "hall_small": lambda: scene_hall(0.25),
 }

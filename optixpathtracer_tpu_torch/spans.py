@@ -32,6 +32,9 @@ ISECT_CLOSEST = "tracer.isect.closest"  # api.intersect_closest, whole
 ISECT_ANY = "tracer.isect.any"      # api.intersect_any, whole
 ISECT_ORDER = "tracer.isect.order"  # coherence key, argsort, ray gathers
 ISECT_KERNEL = "tracer.isect.kernel"  # a hand-written kernel (or plain)
+# a packet sweep, inside ISECT_KERNEL; its name lies outside
+# "tracer.isect.", whose spans other than ISECT_KERNEL read as glue
+PACKET = "tracer.packet"
 ISECT_CANDIDATES = "tracer.isect.candidates"  # candidate sort and count
 ISECT_UNSORT = "tracer.isect.unsort"  # back to lane order, hit record
 ISECT_REFINE = "tracer.isect.refine"  # differentiable re-intersection
@@ -44,8 +47,8 @@ BSDF_SAMPLE = "tracer.bsdf.sample"  # dispatch.sample: every active lobe
 ADVANCE = "tracer.advance"          # throughput and ray update
 
 NAMES = (FRAME, RAYGEN, BOUNCE, ISECT_CLOSEST, ISECT_ANY, ISECT_ORDER,
-         ISECT_KERNEL, ISECT_CANDIDATES, ISECT_UNSORT, ISECT_REFINE, CUTOUT,
-         SHADE, SURFACE, NEE, BSDF_F, BSDF_SAMPLE, ADVANCE)
+         ISECT_KERNEL, PACKET, ISECT_CANDIDATES, ISECT_UNSORT, ISECT_REFINE,
+         CUTOUT, SHADE, SURFACE, NEE, BSDF_F, BSDF_SAMPLE, ADVANCE)
 
 _NULL = contextlib.nullcontext()
 _range = torch._C._profiler._RecordFunctionFast

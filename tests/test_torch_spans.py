@@ -14,7 +14,8 @@ from optixpathtracer_tpu_torch.integrate.cutout import \
     scene_uses_alpha_cutout
 from optixpathtracer_tpu_torch.scene import flatten_model
 from optixpathtracer_tpu_torch.scene.flatten import scene_active_lobes
-from optixpathtracer_tpu_torch.scene.procedural import scene_material_test
+from optixpathtracer_tpu_torch.scene.procedural import (scene_hall,
+                                                         scene_material_test)
 
 torch.set_num_threads(1)
 
@@ -120,3 +121,58 @@ def test_profiler_leaves_the_image_unchanged(diffuse):
     traced, _ = _profiled(diffuse)
     assert plain.abs().sum() > 0
     assert torch.equal(plain, traced)
+
+
+ISECT_NAMES = {spans.ISECT_CLOSEST, spans.ISECT_ANY, spans.ISECT_ORDER,
+               spans.ISECT_KERNEL, spans.ISECT_CANDIDATES, spans.ISECT_UNSORT,
+               spans.ISECT_REFINE}
+
+
+def _hall_frame(hall, profiled):
+    """One frame of the cut hall with every query on the packet engine:
+    closest and occlusion queries, on the opaque scene and in the cutout
+    chains over the foliage."""
+    scene, cam = hall
+    accum = torch.zeros((8, 8, 3))
+
+    def frame():
+        return path.render_chunk(
+            scene, *cam, 8, 8, accum, 3, 1, 2, "packet",
+            active_lobes=scene_active_lobes(scene), use_textures=True,
+            use_alpha_cutout=scene_uses_alpha_cutout(scene))
+
+    if not profiled:
+        return frame(), []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        image = frame()
+    ranges = [(ev.name(), ev.start_ns(), ev.start_ns() + ev.duration_ns())
+              for ev in prof.profiler.kineto_results.events()
+              if ev.name().startswith("tracer.")]
+    return image, ranges
+
+
+def test_packet_span_inside_the_kernel_span():
+    model, camera, lights = scene_hall(0.1)
+    scene = flatten_model(model, lights, device="cpu")
+    hall = scene, camera.raygen_params(8, 8, "cpu")
+    assert scene_uses_alpha_cutout(scene)
+    plain, _ = _hall_frame(hall, profiled=False)
+    traced, ranges = _hall_frame(hall, profiled=True)
+    assert plain.abs().sum() > 0
+    assert torch.equal(plain, traced)
+    assert {n for n, _, _ in ranges} <= set(spans.NAMES)
+    assert {n for n, _, _ in ranges
+            if n.startswith("tracer.isect.")} <= ISECT_NAMES
+    assert not spans.PACKET.startswith("tracer.isect.")
+    packets = [r for r in ranges if r[0] == spans.PACKET]
+    kernels = [r for r in ranges if r[0] == spans.ISECT_KERNEL]
+    queries = [r for r in ranges
+               if r[0] in (spans.ISECT_CLOSEST, spans.ISECT_ANY)]
+    assert packets
+    holders = set()
+    for p in packets:
+        assert any(_inside(p, k) for k in kernels), p
+        holders |= {q[0] for q in queries if _inside(p, q)}
+    assert holders == {spans.ISECT_CLOSEST, spans.ISECT_ANY}
+    assert any(_inside(p, c) for p in packets for c in ranges
+               if c[0] == spans.CUTOUT)
