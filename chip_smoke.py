@@ -55,14 +55,18 @@ runs the dense closest kernel over the 40-triangle cutout sub-scene).
    the frame first runs it on: closest and candidates at the primary
    wavefront (hall's dense closest at its first cutout chain, packet at
    bounce 1), occlusion at the bounce-0 shadow wavefront, with the other
-   wavefronts listed. The layered glossy-diffuse lobe's two kernels
-   (csrc/layered_bsdf.cu, which replace no TPU kernel) run at every call
-   of a real `layered` frame (f and sample at bounces 0 and 1, 2,073,600
-   lanes each): outputs bit for bit the plain lobe's, kernel and plain ms,
-   and a bound from the work the kernel counts itself (FP32 operations at
-   the FP32 rate, float64 exp / cos / sin calls x FP64_CALL_OPS at the
-   FP64 rate, or bytes, the largest). The build's register counts
-   (ptxas -v) of all nine kernels are printed.
+   wavefronts listed. The BSDF dispatch's three kernels
+   (csrc/layered_bsdf.cu, which replace no TPU kernel: the layered lobe's
+   f walks, the closed-form lobes' f, and the sample of every lobe) run at
+   every dispatch call of a real `diffuse`, `layered` and hall frame (f
+   and sample at each bounce, 2,073,600 lanes each): the lanes' shares by
+   resolved type, each call bit for bit the plain dispatch's, each
+   kernel's ms alone beside the call's and the plain dispatch's, and a
+   bound from the work the kernel counts itself (FP32 operations at the
+   FP32 rate, float64 exp / cos / sin calls x FP64_CALL_OPS at the FP64
+   rate) or the bytes its lanes need, the largest. The build's register
+   counts and spills (ptxas -v) of all ten kernels are printed, the sample
+   kernel's three instantiations apart.
 2. Path phase. `render` (method "auto") of each cell at 1920x1080 with
    every launch counter zeroed just before and read just after; each
    cell's kernels must have launched and the image must be finite and
@@ -148,13 +152,15 @@ CELLS = (
     ("hall", 2, 2),             # bench.py hall_fwd: walk, packet, dense
 )
 WALK = ("walk_candidates", "walk_closest", "walk_any")
-LAYERED = ("layered_f", "layered_sample")
+BSDF = ("layered_f", "lobes_f", "lobes_sample")
 CELL_KERNELS = {  # the kernels each cell's render must launch
     "scene3_cornell": ("dense_closest", "dense_any"),
-    "diffuse": WALK, "layered": WALK + LAYERED,
+    "diffuse": WALK + ("lobes_f", "lobes_sample"),
+    "layered": WALK + ("layered_f", "lobes_sample"),
     # hall's cutout chains are closest-hit queries, so no dense_any
-    "hall": WALK + ("packet_closest", "packet_any", "dense_closest"),
+    "hall": WALK + ("packet_closest", "packet_any", "dense_closest") + BSDF,
 }
+BSDF_SCENES = ("diffuse", "layered", "hall")
 DENSE_SCENES = ("scene3_cornell", "diffuse")
 WALK_SCENES = ("diffuse", "layered")
 IMAGE_SCENES = ("scene3_cornell", "diffuse", "layered", "conductor",
@@ -229,15 +235,17 @@ def cuda_time_ms(fn, reps):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route every kernel wrapper (dense, walk, packet and the layered
-    lobe's) to its plain version."""
+    """Route every kernel wrapper (dense, walk, packet, the BSDF dispatch's
+    and the layered lobe's) to its plain version."""
+    from optixpathtracer_tpu_torch.bsdf import dispatch
     from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
     from optixpathtracer_tpu_torch.intersect import packet_kernels as pk
     from optixpathtracer_tpu_torch.intersect import walk_kernels as wk
     from optixpathtracer_tpu_torch.bsdf import glossy_diffuse as gd
     saved = (dk.closest_kernel, dk.any_kernel, wk.candidates_kernel,
              wk.closest_kernel, wk.any_kernel, pk.packet_closest_kernel,
-             pk.packet_any_kernel, gd.f_kernel, gd.sample_kernel)
+             pk.packet_any_kernel, gd.f_kernel, gd.sample_kernel,
+             dispatch.f_kernel, dispatch.sample_kernel)
     dk.closest_kernel = (lambda tris, boxes, n_live, *rays:
                          dk.closest_plain(tris, *rays))
     dk.any_kernel = (lambda tris, boxes, n_live, *rays:
@@ -252,12 +260,15 @@ def plain_kernels():
     pk.packet_any_kernel = functools.partial(pk.plain_launch,
                                              pk.packet_any_plain)
     gd.f_kernel, gd.sample_kernel = gd.f_plain, gd.sample_plain
+    dispatch.f_kernel = dispatch.f_plain
+    dispatch.sample_kernel = dispatch.sample_plain
     try:
         yield
     finally:
         (dk.closest_kernel, dk.any_kernel, wk.candidates_kernel,
          wk.closest_kernel, wk.any_kernel, pk.packet_closest_kernel,
-         pk.packet_any_kernel, gd.f_kernel, gd.sample_kernel) = saved
+         pk.packet_any_kernel, gd.f_kernel, gd.sample_kernel,
+         dispatch.f_kernel, dispatch.sample_kernel) = saved
 
 
 def kernel_wrappers():
@@ -271,7 +282,8 @@ def kernel_wrappers():
             "walk_closest": wk.closest_kernel, "walk_any": wk.any_kernel,
             "packet_closest": pk.packet_closest_kernel,
             "packet_any": pk.packet_any_kernel,
-            "layered_f": gd.f_kernel, "layered_sample": gd.sample_kernel}
+            "layered_f": gd.f_kernel, "lobes_f": gd.lobes_f_kernel,
+            "lobes_sample": gd.lobes_sample_kernel}
 
 
 @contextlib.contextmanager
@@ -856,30 +868,47 @@ def packet_bound(card, scene, kind, t):
 
 
 def ptxas_usage(report):
-    """{kernel name: (registers, static shared bytes)} from a ptxas -v
-    report."""
-    usage, name = {}, None
+    """{kernel name: (registers, static shared bytes, spill store bytes)}
+    from a ptxas -v report."""
+    usage, name, spill = {}, None, 0
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = m.group(1)
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
         if m and name:
-            usage[name] = (int(m.group(1)), int(m.group(2) or 0))
+            usage[name] = (int(m.group(1)), int(m.group(2) or 0), spill)
     return usage
 
 
+# the sample kernel's instantiations (kCount, kClosed, kLayered) on the
+# main path, by the lobes they take
+SAMPLE_VARIANTS = {"ILb0ELb1ELb0E": "closed", "ILb0ELb0ELb1E": "layered",
+                   "ILb0ELb1ELb1E": "both"}
+
+
 def kernel_registers(reports):
-    """{kernel: (registers, static shared bytes)} of the nine kernels,
-    from the ptxas reports of the build (the layered lobe's main-path
-    instantiations, not those that count their work)."""
+    """{kernel: (registers, static shared bytes, spill store bytes)} of the
+    kernels, from the ptxas reports of the build: the BSDF kernels' main-path
+    instantiations, not those that count their work, and the sample
+    kernel's three also as `lobes_sample[closed|layered|both]`, the most
+    registers of them as `lobes_sample`."""
     usage = {}
     for report in reports.values():
         for mangled, v in ptxas_usage(report).items():
             for kname in KERNEL_SOURCES:
-                if f"{kname}_kernel" in mangled and not (
-                        kname in LAYERED and "ILb1E" in mangled):
-                    usage[kname] = v
+                if f"{kname}_kernel" not in mangled or (
+                        kname in BSDF and "ILb1E" in mangled):
+                    continue
+                variant = [t for k, t in SAMPLE_VARIANTS.items()
+                           if kname == "lobes_sample" and k in mangled]
+                if variant:
+                    usage[f"{kname}[{variant[0]}]"] = v
+                    v = max(v, usage.get(kname, v))
+                usage[kname] = v
     return usage
 
 
@@ -982,24 +1011,25 @@ def chunk256_phase(model, lights, camera, dev, stats):
 
 
 # ---------------------------------------------------------------------------
-# The layered glossy-diffuse lobe
+# The BSDF dispatch's kernels
 # ---------------------------------------------------------------------------
 
-def layered_calls(scene, camera, bounces, dev):
-    """Every call of the layered lobe's f and sample in one real 1080p
+def dispatch_calls(scene, camera, bounces, dev):
+    """Every call of the BSDF dispatch's kernel path in one real 1080p
     trace_paths frame of the scene ("auto" routing), in call order:
-    [(kind, args, kwargs)]."""
+    [(kind, args)], args being (seed, mat, wo, wi, lobes) for "f" and
+    (seed, mat, wo, lobes) for "sample"."""
     import torch
-    from optixpathtracer_tpu_torch.bsdf import glossy_diffuse as gd
+    from optixpathtracer_tpu_torch.bsdf import dispatch
     from optixpathtracer_tpu_torch.camera.camera import generate_rays
     from optixpathtracer_tpu_torch.core import rng
     from optixpathtracer_tpu_torch.integrate import path
-    calls, saved = [], (gd.f, gd.sample)
+    calls, saved = [], (dispatch.f_kernel, dispatch.sample_kernel)
 
     def recorded(kind, fn):
-        def run(*args, **kwargs):
-            calls.append((kind, args, kwargs))
-            return fn(*args, **kwargs)
+        def run(*args):
+            calls.append((kind, args))
+            return fn(*args)
         return run
 
     o, d = generate_rays(*camera.raygen_params(WIDTH, HEIGHT, dev), WIDTH,
@@ -1007,20 +1037,21 @@ def layered_calls(scene, camera, bounces, dev):
     ys, xs = torch.meshgrid(torch.arange(HEIGHT, device=dev),
                             torch.arange(WIDTH, device=dev), indexing="ij")
     seed = rng.pixel_seed(WIDTH, xs.reshape(-1), ys.reshape(-1), 0)
-    gd.f, gd.sample = recorded("f", saved[0]), recorded("sample", saved[1])
+    dispatch.f_kernel = recorded("f", saved[0])
+    dispatch.sample_kernel = recorded("sample", saved[1])
     try:
         with torch.no_grad():
             path.trace_paths(scene, o.reshape(-1, 3).contiguous(),
                              d.reshape(-1, 3).contiguous(), seed, bounces,
                              "auto", **scene_flags(scene))
     finally:
-        gd.f, gd.sample = saved
+        dispatch.f_kernel, dispatch.sample_kernel = saved
     assert [c[0] for c in calls] == ["f", "sample"] * bounces
     return calls
 
 
 def _lobe_outputs(out):
-    """The tensors of a lobe call's (seed, rgb) or (seed, BSDFSample)."""
+    """The tensors of a dispatch call's (seed, rgb) or (seed, BSDFSample)."""
     seed, rest = out
     return [seed] + (list(rest) if isinstance(rest, tuple) else [rest])
 
@@ -1031,8 +1062,8 @@ def _bits(x):
     return x.view(torch.int32) if x.dtype == torch.float32 else x
 
 
-def layered_bound(card, ops, lanes, n_bytes):
-    """(bound ms, what bounds it) of one lobe kernel call from the work it
+def bsdf_bound(card, ops, n_bytes):
+    """(bound ms, what bounds it) of one BSDF kernel call from the work it
     counted (FP32 operations, float64 calls): FP32 operations at the FP32
     rate, float64 calls x FP64_CALL_OPS at the FP64 rate, or bytes at
     3.35 TB/s, whichever is largest."""
@@ -1040,65 +1071,124 @@ def layered_bound(card, ops, lanes, n_bytes):
     times = {"fp32 operations": fp32 / card.fp32_per_s * 1e3,
              "fp64 calls": fp64 * FP64_CALL_OPS / (
                  SMS * FP64_LANES * card.max_sm_mhz * 1e6) * 1e3,
-             "bytes": lanes * n_bytes / HBM_BYTES_PER_S * 1e3}
+             "bytes": n_bytes / HBM_BYTES_PER_S * 1e3}
     by = max(times, key=times.get)
     return times[by], by, fp32, fp64
 
 
-# bytes a lane reads and writes: f seed, albedo, roughness, wo, wi, eta ->
-# rgb; sample seed, albedo, roughness, wo, eta -> seed, color, direction,
-# pdf, five flags
-LAYERED_BYTES = {"f": 8 + 12 + 4 + 12 + 12 + 4 + 12,
-                 "sample": 8 + 12 + 4 + 12 + 4 + 8 + 12 + 12 + 4 + 5}
+def bsdf_bytes(kname, own, closed, lanes):
+    """The bytes a call of the kernel reads and writes, from its lanes:
+    `own` those of the layered type where the layered lobe is asked for,
+    `closed` those of an asked-for closed-form lobe. layered_f reads a
+    lane's type, and an own lane's seed, albedo, roughness, wo, wi and eta
+    and writes its rgb (68 bytes); lobes_f reads the type, and an asked-for
+    closed-form lane's inputs (60 bytes with its rgb), and writes zeros on
+    the others not its own (16); lobes_sample reads seed, type, albedo,
+    roughness, wo and eta and writes seed, color, direction, pdf and five
+    flags on every lane (85)."""
+    if kname == "layered_f":
+        return own * 68 + (lanes - own) * 4
+    if kname == "lobes_f":
+        return closed * 60 + (lanes - own - closed) * 16 + own * 4
+    return lanes * 85
 
 
-def layered_phase(name, scene, camera, bounces, dev, card, stats):
-    """The layered lobe's two kernels at every call of one real 1080p
-    frame: each against the plain lobe bit for bit (its counting
-    instantiation too), timed with CUDA events (the plain lobe too), and
-    bounded from the work it counted."""
+def type_shares(mat_type):
+    """{lobe name: share of the lanes of that resolved type}."""
     import torch
+    from optixpathtracer_tpu_torch.bsdf import dispatch
+    counts = torch.bincount(mat_type.long().clamp(0, 4), minlength=5)
+    names = {v: k for k, v in dispatch.MATERIAL_NAMES.items()}
+    return {names[t]: round(float(c) / mat_type.numel(), 4)
+            for t, c in enumerate(counts.tolist())}
+
+
+def bsdf_phase(name, scene, camera, bounces, dev, card, stats):
+    """The dispatch's kernels at every call of one real 1080p frame: the
+    lanes' shares by resolved type; each call through the kernels against
+    the plain dispatch bit for bit (the kernels' counting instantiations
+    too); each kernel timed alone with CUDA events, the whole kernel path
+    and the plain dispatch too, and bounded from the work it counted and
+    the bytes its lanes need."""
+    import torch
+    from optixpathtracer_tpu_torch.bsdf import dispatch
     from optixpathtracer_tpu_torch.bsdf import glossy_diffuse as gd
-    calls = layered_calls(scene, camera, bounces, dev)
-    kernels = {"f": gd.f_kernel, "sample": gd.sample_kernel}
-    plains = {"f": gd.f_plain, "sample": gd.sample_plain}
+    paths = {"f": dispatch.f_kernel, "sample": dispatch.sample_kernel}
+    plains = {"f": dispatch.f_plain, "sample": dispatch.sample_plain}
     rows = {}
     with torch.no_grad():
-        for i, (kind, args, kwargs) in enumerate(calls):
+        for i, (kind, args) in enumerate(dispatch_calls(scene, camera,
+                                                        bounces, dev)):
             bounce = i // 2
+            seed, mat, wo, lobes = args[0], args[1], args[2], args[-1]
+            wi = args[3] if kind == "f" else None
+            lanes = wo.shape[0]
+            layered = dispatch.GLOSSY_DIFFUSE in lobes
+            closed_lobes = [t for t in lobes if t != dispatch.GLOSSY_DIFFUSE]
+            own = int((mat.mat_type == dispatch.GLOSSY_DIFFUSE).sum()) \
+                if layered else 0
+            closed = int(torch.isin(mat.mat_type, torch.tensor(
+                closed_lobes or [-1], device=dev, dtype=torch.int32)).sum())
             ops = torch.zeros(2, dtype=torch.int64, device=dev)
-            got = _lobe_outputs(kernels[kind](*args, **kwargs))
-            counted = _lobe_outputs(kernels[kind](*args, **kwargs, ops=ops))
-            want = _lobe_outputs(plains[kind](*args, **kwargs))
+            got = _lobe_outputs(paths[kind](*args))
+            counted = _lobe_outputs(paths[kind](*args, ops=ops))
+            with plain_kernels():
+                want = _lobe_outputs(plains[kind](*args))
             torch.cuda.synchronize()
             for a, c, b in zip(got, counted, want):
                 if not (torch.equal(_bits(a), _bits(b))
                         and torch.equal(_bits(c), _bits(b))):
-                    raise AssertionError(f"{name} layered {kind} bounce "
-                                         f"{bounce}: kernel != plain")
-            lanes = args[3].shape[0]
-            ms = cuda_time_ms(lambda: kernels[kind](*args, **kwargs), 10)
-            plain_ms = cuda_time_ms(lambda: plains[kind](*args, **kwargs), 2)
-            bound_ms, by, fp32, fp64 = layered_bound(
-                card, ops, lanes, LAYERED_BYTES[kind])
-            rows.setdefault(kind, []).append({
-                "bounce": bounce, "lanes": lanes, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-                "fp32_ops": fp32, "fp64_calls": fp64})
-            log(f"  {name} layered {kind} bounce {bounce}: {lanes} lanes "
-                f"bit for bit the plain lobe; kernel {ms:.3f} ms, plain "
-                f"{plain_ms:.1f} ms; {fp32 / lanes:.0f} FP32 operations and "
-                f"{fp64 / lanes:.1f} float64 calls a lane; bound "
-                f"{bound_ms:.3f} ms ({by}), reach {bound_ms / ms:.1%}")
-    for kind, kname in (("f", "layered_f"), ("sample", "layered_sample")):
-        first = rows[kind][0]
+                    raise AssertionError(f"{name} bsdf {kind} bounce "
+                                         f"{bounce}: kernels != plain")
+            if kind == "f":
+                shares = type_shares(mat.mat_type)
+                log(f"  {name} bounce {bounce}: {lanes} lanes by resolved "
+                    f"type {shares}")
+                stats.setdefault((name, "type_shares"), []).append(shares)
+            path_ms = cuda_time_ms(lambda: paths[kind](*args), 10)
+            with plain_kernels():
+                plain_ms = cuda_time_ms(lambda: plains[kind](*args), 2)
+            out = torch.empty(wo.shape, dtype=torch.float32, device=dev)
+            mask = dispatch.lobe_mask(lobes)
+            launches = {
+                "layered_f": lambda o=None: gd.f_kernel(
+                    seed, mat.albedo, mat.roughness, wo, wi, mat.ior, ops=o,
+                    mat_type=mat.mat_type, out=out, others=not closed_lobes),
+                "lobes_f": lambda o=None: gd.lobes_f_kernel(
+                    mat.mat_type, mat.albedo, mat.roughness, wo, wi,
+                    mat.ior, mask, out, o),
+                "lobes_sample": lambda o=None: dispatch.sample_kernel(
+                    seed, mat, wo, lobes, o)}
+            knames = (["lobes_sample"] if kind == "sample" else
+                      ["layered_f"] * layered
+                      + ["lobes_f"] * (bool(closed_lobes) or not layered))
+            for kname in knames:
+                k_ops = torch.zeros(2, dtype=torch.int64, device=dev)
+                launches[kname](k_ops)
+                ms = cuda_time_ms(launches[kname], 10)
+                bound_ms, by, fp32, fp64 = bsdf_bound(
+                    card, k_ops, bsdf_bytes(kname, own, closed, lanes))
+                rows.setdefault(kname, []).append({
+                    "bounce": bounce, "lanes": lanes, "ms": ms,
+                    "path_ms": path_ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": by, "fp32_ops": fp32,
+                    "fp64_calls": fp64})
+                log(f"  {name} {kname} bounce {bounce}: {lanes} lanes "
+                    f"({own} layered, {closed} closed-form asked for); "
+                    f"kernel {ms:.3f} ms (the {kind} call's kernels "
+                    f"{path_ms:.3f} ms, bit for bit the plain dispatch's "
+                    f"{plain_ms:.1f} ms); {fp32 / lanes:.0f} FP32 operations "
+                    f"and {fp64 / lanes:.1f} float64 calls a lane; bound "
+                    f"{bound_ms:.3f} ms ({by}), reach {bound_ms / ms:.1%}")
+    for kname, krows in rows.items():
+        first = krows[0]
         stats[(name, kname)] = {
             "max_abs_err": 0.0, "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],
-            "bounce_ms": [r["ms"] for r in rows[kind]],
-            "bounce_bound_ms": [r["bound_ms"] for r in rows[kind]],
-            "bounces": rows[kind]}
+            "bounce_ms": [r["ms"] for r in krows],
+            "bounce_bound_ms": [r["bound_ms"] for r in krows],
+            "bounces": krows}
 
 
 # ---------------------------------------------------------------------------
@@ -2119,7 +2209,8 @@ KERNEL_SOURCES = {
     "packet_any": ("packet_intersect.cu",
                    "optixpathtracer_tpu/intersect/packet_kernels.py:290"),
     "layered_f": ("layered_bsdf.cu", None),  # no TPU kernel: plain jnp
-    "layered_sample": ("layered_bsdf.cu", None),
+    "lobes_f": ("layered_bsdf.cu", None),
+    "lobes_sample": ("layered_bsdf.cu", None),
 }
 
 
@@ -2143,8 +2234,9 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas: " + line.strip())
     registers = kernel_registers(reports)
-    log("registers a thread (ptxas -v; static shared bytes): " + ", ".join(
-        f"{k} {v[0]} ({v[1]})" for k, v in registers.items()))
+    log("registers a thread (ptxas -v; static shared bytes, spill store "
+        "bytes): " + ", ".join(f"{k} {v[0]} ({v[1]}, {v[2]})"
+                                for k, v in registers.items()))
     dev = torch.device("cuda")
 
     scenes = {}
@@ -2177,8 +2269,8 @@ def main():
                        dense_table=name == "diffuse")
         if name == "diffuse":
             chunk256_phase(model, lights, camera, dev, stats)
-        if name == "layered":
-            layered_phase(name, scene, camera, bounces, dev, card, stats)
+        if name in BSDF_SCENES:
+            bsdf_phase(name, scene, camera, bounces, dev, card, stats)
         if name == "hall":
             walk_phase(name, main_scene, waves, card, stats,
                        primary_sub=SUBSAMPLE)

@@ -1,12 +1,17 @@
 """Material model + wavefront BSDF dispatch
 (port of `optixpathtracer_tpu/bsdf/dispatch.py`).
 
-Materials carry a first-class type enum. Dispatch evaluates every lobe in
-the static `active_lobes` tuple on every lane and lane-selects, so the
-wavefront stays dense and every lobe advances the RNG streams the same way
-on every lane, as in the reference. The material-sorted shading of
-`trace_paths` (`material_sort`) also passes `gates`, one host bool a lobe,
-and a lobe gated off is skipped outright (`_gated`).
+Materials carry a first-class type enum. The plain dispatch (`f_plain`,
+`sample_plain`) evaluates every lobe in `lobes` on every lane and
+lane-selects, so the wavefront stays dense and every lobe advances the RNG
+streams the same way on every lane, as in the reference. On CUDA inputs that
+autograd does not record (`glossy_diffuse.uses_kernel`), `f` and `sample`
+run the kernels of `csrc/layered_bsdf.cu` instead (`f_kernel`,
+`sample_kernel`), bit for bit the plain dispatch: each lane evaluates only
+its own lobe, and steps its seed past the other lobes' draws
+(`SAMPLE_DRAWS`). The material-sorted shading of `trace_paths`
+(`material_sort`) also passes `gates`, one host bool a lobe: a lobe gated
+off is skipped outright, and draws nothing.
 """
 from __future__ import annotations
 
@@ -37,6 +42,11 @@ MATERIAL_NAMES = {
 }
 
 ALL_LOBES = (DIFFUSE, CONDUCTOR, DIELECTRIC, GLOSSY_DIFFUSE)
+
+# The lcg steps each lobe's sample takes on every lane, whatever the lane's
+# type: the sample kernel steps a lane past the lobes it skips by these.
+SAMPLE_DRAWS = {DIFFUSE: 2, CONDUCTOR: 2, DIELECTRIC: 3,
+                GLOSSY_DIFFUSE: _glossy.sample_draws()}
 
 
 class MaterialParams(NamedTuple):
@@ -71,17 +81,20 @@ def _mirror_z(v):
 # itself (`GlossyDiffuse.h:110-135`).
 
 
-def _gated(gates, lobe, seed, eval_fn, zero_fn):
-    """`eval_fn(seed)` (returning (seed, value)), unless `gates` is given
-    and gates[lobe] is false: then the lobe is skipped and (seed,
-    zero_fn()) returned. The reference's lax.cond becomes a host `if`.
+def _lobes(active_lobes, gates):
+    """The lobes that evaluate and draw: those of the static `active_lobes`
+    that `gates` (lobe -> bool, or None) does not turn off. The
+    reference's lax.cond becomes a host `if`. A gated-off lobe does not
+    advance the RNG streams it would have used, so material-sorted images
+    differ from unsorted ones by decorrelated samples (as unbiased, not
+    bit-identical)."""
+    return tuple(lobe for lobe in active_lobes
+                 if gates is None or gates[lobe])
 
-    A skipped lobe does not advance the RNG streams it would have used, so
-    material-sorted images differ from unsorted ones by decorrelated
-    samples (as unbiased, not bit-identical)."""
-    if gates is None or gates[lobe]:
-        return eval_fn(seed)
-    return seed, zero_fn()
+
+def _uses_kernel(seed, mat, wo, *wi):
+    return _glossy.uses_kernel(wo, *wi, seed, mat.albedo, mat.roughness,
+                               mat.ior)
 
 
 @spans.traced(spans.BSDF_F)
@@ -89,51 +102,53 @@ def f(seed, mat: MaterialParams, wo, wi, active_lobes=ALL_LOBES,
       gates=None):
     """Evaluate the BSDF for every lane (resolved types only: call
     `resolve_stochastic_lobe` first). Returns (seed, rgb). `active_lobes`
-    (static) prunes lobes absent from the scene; `gates` (lobe -> bool)
-    skips lobes at run time (`_gated`). Only the layered lobe hands its
-    seed on, as in the reference."""
-    t = mat.mat_type[..., None]
-    flip = (wo[..., 2] < 0.0)[..., None]
-    wo_m = torch.where(flip, _mirror_z(wo), wo)
-    wi_m = torch.where(flip, _mirror_z(wi), wi)
-
-    def zero3():
-        return torch.zeros(wo.shape[:-1] + (3,), device=wo.device)
-
-    out = zero3()
-    if DIFFUSE in active_lobes:
-        _, f_d = _gated(gates, DIFFUSE, seed,
-                        lambda s: (s, _diffuse.f(mat.albedo, wo_m, wi_m)),
-                        zero3)
-        out = torch.where(t == DIFFUSE, f_d, out)
-    if CONDUCTOR in active_lobes:
-        _, f_c = _gated(gates, CONDUCTOR, seed,
-                        lambda s: (s, _conductor.f(mat.albedo, mat.roughness,
-                                                   wo_m, wi_m)), zero3)
-        out = torch.where(t == CONDUCTOR, f_c, out)
-    if DIELECTRIC in active_lobes:
-        # the pure dielectric lobe tinted by albedo, as in the reference's
-        # commented dispatch (`devicePrograms.cu:333`); it needs the true
-        # orientation (the signed cosine picks the eta side), so no mirror
-        _, f_x = _gated(gates, DIELECTRIC, seed,
-                        lambda s: (s, _dielectric.f(mat.roughness, wo, wi,
-                                                    eta=mat.ior)
-                                   * mat.albedo), zero3)
-        out = torch.where(t == DIELECTRIC, f_x, out)
-    if GLOSSY_DIFFUSE in active_lobes:
-        seed, f_glossy = _gated(
-            gates, GLOSSY_DIFFUSE, seed,
-            lambda s: _glossy.f(s, mat.albedo, mat.roughness, wo, wi,
-                                eta=mat.ior), zero3)
-        out = torch.where(t == GLOSSY_DIFFUSE, f_glossy, out)
-    return seed, out
+    (static) prunes lobes absent from the scene; `gates` skips lobes at run
+    time (`_lobes`). The seed is handed back unchanged, as the layered lobe
+    hands it back in the reference."""
+    run = f_kernel if _uses_kernel(seed, mat, wo, wi) else f_plain
+    return run(seed, mat, wo, wi, _lobes(active_lobes, gates))
 
 
 @spans.traced(spans.BSDF_SAMPLE)
 def sample(seed, mat: MaterialParams, wo, active_lobes=ALL_LOBES,
            gates=None):
     """Importance-sample the BSDF per lane. Returns (seed, BSDFSample).
-    `gates`: see f()."""
+    `active_lobes`, `gates`: see f()."""
+    run = sample_kernel if _uses_kernel(seed, mat, wo) else sample_plain
+    return run(seed, mat, wo, _lobes(active_lobes, gates))
+
+
+def f_plain(seed, mat: MaterialParams, wo, wi, lobes):
+    """`f` as PyTorch ops: every lobe of `lobes` on every lane, then each
+    lane's own selected."""
+    t = mat.mat_type[..., None]
+    flip = (wo[..., 2] < 0.0)[..., None]
+    wo_m = torch.where(flip, _mirror_z(wo), wo)
+    wi_m = torch.where(flip, _mirror_z(wi), wi)
+
+    out = torch.zeros(wo.shape[:-1] + (3,), device=wo.device)
+    if DIFFUSE in lobes:
+        out = torch.where(t == DIFFUSE, _diffuse.f(mat.albedo, wo_m, wi_m),
+                          out)
+    if CONDUCTOR in lobes:
+        f_c = _conductor.f(mat.albedo, mat.roughness, wo_m, wi_m)
+        out = torch.where(t == CONDUCTOR, f_c, out)
+    if DIELECTRIC in lobes:
+        # the pure dielectric lobe tinted by albedo, as in the reference's
+        # commented dispatch (`devicePrograms.cu:333`); it needs the true
+        # orientation (the signed cosine picks the eta side), so no mirror
+        f_x = _dielectric.f(mat.roughness, wo, wi, eta=mat.ior) * mat.albedo
+        out = torch.where(t == DIELECTRIC, f_x, out)
+    if GLOSSY_DIFFUSE in lobes:
+        seed, f_glossy = _glossy.f(seed, mat.albedo, mat.roughness, wo, wi,
+                                   eta=mat.ior)
+        out = torch.where(t == GLOSSY_DIFFUSE, f_glossy, out)
+    return seed, out
+
+
+def sample_plain(seed, mat: MaterialParams, wo, lobes):
+    """`sample` as PyTorch ops: every lobe of `lobes` samples every lane,
+    then each lane's own sample is selected."""
     t = mat.mat_type
     flip = (wo[..., 2] < 0.0)[..., None]
     wo_m = torch.where(flip, _mirror_z(wo), wo)
@@ -142,35 +157,55 @@ def sample(seed, mat: MaterialParams, wo, active_lobes=ALL_LOBES,
         return s._replace(direction=torch.where(flip, _mirror_z(s.direction),
                                                 s.direction))
 
-    def invalid():
-        return BSDFSample.invalid(wo.shape[:-1], wo.device)
-
-    def sample_x(s):
-        s, sx = _dielectric.sample(s, mat.roughness, wo, eta=mat.ior)
-        return s, sx._replace(color=sx.color * mat.albedo)
-
-    out = invalid()
-    if DIFFUSE in active_lobes:
-        seed, s = _gated(gates, DIFFUSE, seed,
-                         lambda s: _diffuse.sample(s, mat.albedo, wo_m),
-                         invalid)
+    out = BSDFSample.invalid(wo.shape[:-1], wo.device)
+    if DIFFUSE in lobes:
+        seed, s = _diffuse.sample(seed, mat.albedo, wo_m)
         out = where_sample(t == DIFFUSE, _unflip(s), out)
-    if CONDUCTOR in active_lobes:
-        seed, s = _gated(gates, CONDUCTOR, seed,
-                         lambda s: _conductor.sample(s, mat.albedo,
-                                                     mat.roughness, wo_m),
-                         invalid)
+    if CONDUCTOR in lobes:
+        seed, s = _conductor.sample(seed, mat.albedo, mat.roughness, wo_m)
         out = where_sample(t == CONDUCTOR, _unflip(s), out)
-    if DIELECTRIC in active_lobes:
-        seed, s = _gated(gates, DIELECTRIC, seed, sample_x, invalid)
+    if DIELECTRIC in lobes:
+        seed, s = _dielectric.sample(seed, mat.roughness, wo, eta=mat.ior)
+        s = s._replace(color=s.color * mat.albedo)
         out = where_sample(t == DIELECTRIC, s, out)
-    if GLOSSY_DIFFUSE in active_lobes:
-        seed, s = _gated(gates, GLOSSY_DIFFUSE, seed,
-                         lambda s: _glossy.sample(s, mat.albedo,
-                                                  mat.roughness, wo,
-                                                  eta=mat.ior), invalid)
+    if GLOSSY_DIFFUSE in lobes:
+        seed, s = _glossy.sample(seed, mat.albedo, mat.roughness, wo,
+                                 eta=mat.ior)
         out = where_sample(t == GLOSSY_DIFFUSE, s, out)
     return seed, out
+
+
+def lobe_mask(lobes):
+    """The kernels' lobe mask: bit t set for each lobe t of `lobes`."""
+    return sum(1 << lobe for lobe in lobes)
+
+
+def f_kernel(seed, mat: MaterialParams, wo, wi, lobes, ops=None):
+    """`f_plain` through the kernels, each lane evaluating its own lobe
+    only, into one buffer: the layered lobe's walks
+    (`glossy_diffuse.f_kernel`, on the layered lanes) and the closed-form
+    lobes' kernel (on the others), each launched only where `lobes` needs
+    it. ops: see glossy_diffuse.f_kernel (both kernels add to it)."""
+    out = torch.empty(wo.shape, dtype=torch.float32, device=wo.device)
+    closed = [lobe for lobe in lobes if lobe != GLOSSY_DIFFUSE]
+    layered = GLOSSY_DIFFUSE in lobes
+    if layered:
+        _glossy.f_kernel(seed, mat.albedo, mat.roughness, wo, wi, mat.ior,
+                         ops=ops, mat_type=mat.mat_type, out=out,
+                         others=not closed)
+    if closed or not layered:
+        _glossy.lobes_f_kernel(mat.mat_type, mat.albedo, mat.roughness, wo,
+                               wi, mat.ior, lobe_mask(lobes), out, ops)
+    return seed, out
+
+
+def sample_kernel(seed, mat: MaterialParams, wo, lobes, ops=None):
+    """`sample_plain` through one kernel, each lane sampling its own lobe
+    only. ops: see f_kernel."""
+    draws = [SAMPLE_DRAWS[lobe] if lobe in lobes else 0 for lobe in ALL_LOBES]
+    return _glossy.lobes_sample_kernel(seed, mat.albedo, mat.roughness, wo,
+                                       mat.ior, mat.mat_type,
+                                       lobe_mask(lobes), draws, ops=ops)
 
 
 def pdf(mat: MaterialParams, wo, wi, layered: str = "error"):

@@ -1,37 +1,58 @@
-// The layered glossy-diffuse lobe for Hopper: its BSDF value (f, the mean of
-// n_samples random walks through the coat-over-Lambert layer) and its sample
-// (one random walk), each as one kernel.
+// The BSDF dispatch for Hopper (bsdf/dispatch.py f and sample), each lane
+// evaluating only the lobe of its resolved material type:
+//   * layered_f_kernel: the layered glossy-diffuse lobe's value, the mean of
+//     n_samples random walks through the coat-over-Lambert layer;
+//   * lobes_f_kernel: the closed-form lobes' value (diffuse, conductor,
+//     dielectric);
+//   * lobes_sample_kernel: a sample of any of the four lobes (one random
+//     walk for the layered one).
 //
-// Replaces no TPU kernel. The JAX package evaluates this lobe
-// (optixpathtracer_tpu/bsdf/glossy_diffuse.py) as plain jnp ops that XLA
-// fuses; the port's plain version (bsdf/glossy_diffuse.py f_plain,
-// sample_plain) runs them as some 27,000 (f) and 15,000 (sample) eager
-// PyTorch launches a call, each a full pass of the wavefront through device
-// memory. These kernels keep every walk's state in registers.
+// Replaces no TPU kernel. The JAX package evaluates the lobes
+// (optixpathtracer_tpu/bsdf/) as plain jnp ops that XLA fuses, every active
+// lobe on every lane, then selects each lane's own. The port's plain
+// version (bsdf/dispatch.py f_plain, sample_plain) runs them as eager
+// PyTorch launches, each a full pass of the wavefront through device
+// memory: some 27,000 (layered f) and 15,000 (layered sample) a call, and
+// a few hundred for each closed-form lobe. These kernels keep every lane's
+// and walk's state in registers, and a lane computes its own lobe only.
 //
-// The contract is the plain version's, bit for bit, on every output:
+// The contract is the plain version's, bit for bit, on every output and
+// every lane:
 //   * f: rgb [n, 3] (the caller's seed is handed back unchanged by the
 //     wrapper); sample: the advanced seed, color, direction, pdf and the
-//     valid / reflection / transmission / specular / glossy flags.
+//     valid / reflection / transmission / specular / glossy flags. A lane
+//     whose type is not among the lobes asked for reads zero (f) or the
+//     invalid sample (sample), as the plain dispatch leaves it.
+//   * The diffuse and conductor lobes are one-sided and made two-sided by
+//     mirroring wo and wi through the tangent plane where wo.z < 0 (and the
+//     sampled direction back); the dielectric takes the true orientation and
+//     its value and sample color are tinted by albedo; the layered lobe
+//     flips itself.
 //   * Every product and sum in the plain version's order, each separately
 //     rounded (the build's --fmad=false); '/' and sqrtf are correctly
 //     rounded as built, as PyTorch's are; exp, cos and sin are taken in
 //     float64 and rounded once to float32, as core/math.py does; a Python
 //     float constant is the float32 PyTorch makes of the double; clamp,
 //     amax and comparisons treat NaN as the torch ops do.
-//   * The RNG draws are the plain version's lane by lane: a lane draws its
-//     lobe choice and the two uniforms of the rough branch's sample_wm in
-//     every dielectric event, smooth or not, and its two disk uniforms in
-//     every Lambert event; the sample's seed is advanced by every depth's
-//     draws whether the walk is still going or not. A lane computes only
-//     the branch it takes (smooth or rough, reflected or transmitted, and
-//     nothing of a walk once it has ended), which gives the same values:
-//     the plain version computes every branch and selects.
+//   * The RNG draws are the plain version's lane by lane. In sample, every
+//     lobe asked for draws on every lane, in lobe order, a fixed number of
+//     times (the wrapper passes the counts, dispatch.SAMPLE_DRAWS): a lane
+//     samples its own lobe from the seed at that lobe's offset and steps
+//     the seed past the others with the LCG alone. Within a lobe a lane
+//     draws its lobe choice and the two uniforms of the rough branch's
+//     sample_wm in every dielectric event, smooth or not, the two of
+//     sample_wm in a conductor sample, smooth or not, and its two disk
+//     uniforms in every Lambert event. A lane computes only the branch it
+//     takes (smooth or rough, reflected or transmitted, and nothing of a
+//     walk once it has ended), which gives the same values: the plain
+//     version computes every branch and selects.
 //
-// What bounds them on the H100 is arithmetic, not bytes. A lane of f reads
-// 52 bytes and writes 12; a walk step is a Lambert or dielectric event of
-// a few hundred FP32 operations (a normalisation, Fresnel, the GGX terms),
-// plus the float64 exp, cos and sin. So the design keeps lanes busy:
+// What bounds the layered kernels on the H100 is arithmetic, not bytes. A
+// lane of f reads 56 bytes and writes 12; a walk step is a Lambert or
+// dielectric event of a few hundred FP32 operations (a normalisation,
+// Fresnel, the GGX terms), plus the float64 exp, cos and sin. The
+// closed-form lobes are at most a few hundred operations a lane, so bytes
+// bound lobes_f (60 a lane) and a sample of them (85). The design:
 //   a. f runs one thread per (lane, walk): a block holds 32 neighbouring
 //      lanes and min(n_samples, 8) warps, warp w taking walks w, w + 8, ...
 //      of all 32 lanes, so a warp holds one walk index of neighbouring
@@ -39,10 +60,11 @@
 //      to shared memory, and one thread a lane sums the walks in order
 //      0..n_samples-1 and adds the coat's entrance term, as the plain
 //      version does. The lane's chained float-hash seed is computed once
-//      (warp 0) and shared.
-//   b. sample runs one thread per lane (one walk a lane).
-//   c. A walk stops when it dies (f) or stops walking (sample); the sample
-//      then advances its seed by the draws the remaining depths would make.
+//      (warp 0) and shared. A lane of another type walks no walk.
+//   b. lobes_f and sample run one thread per lane (one walk a lane for a
+//      layered sample); sample is instantiated for the closed-form lobes,
+//      the layered one, or both, as the scene's lobes need.
+//   c. A walk stops when it dies (f) or stops walking (sample).
 // Each kernel can count the work it did (FP32 operations, as counted below
 // beside each function, and float64 exp / cos / sin calls) into two
 // 64-bit counters; the wrappers pass none on the main path.
@@ -56,6 +78,12 @@ constexpr int kFWarpsMax = 8;        // walk warps a block of f
 constexpr int kFThreads = kFWarpsMax * 32;
 constexpr int kSampleThreads = 128;  // lanes a block of sample
 constexpr unsigned kFullMask = 0xffffffffu;
+
+// the lobe ids of bsdf/dispatch.py (DIFFUSE is 0)
+constexpr int kConductor = 1;
+constexpr int kDielectric = 2;
+constexpr int kGlossyDiffuse = 3;
+constexpr int kLobes = 4;
 
 // Python float constants as PyTorch applies them to float32 tensors: the
 // double, rounded once to float32.
@@ -73,6 +101,8 @@ constexpr float kNormEps = static_cast<float>(1e-20);
 constexpr float kWhMaxZ = static_cast<float>(0.99999);
 constexpr float kTrMinZ = static_cast<float>(1e-8);
 constexpr float kPdfMin = static_cast<float>(1e-20);
+constexpr float kMaxReflectance = static_cast<float>(0.9999);
+constexpr float kKEps = static_cast<float>(1e-12);
 constexpr float kRRBeta = 0.25f;
 constexpr float kU24 = 1.0f / 16777216.0f;  // exact: 2^-24
 
@@ -335,6 +365,63 @@ __device__ __forceinline__ bool refract(V3 wi, V3 n, float eta, float& etap,
                   -wi.z / eta_eff + k * n_eff.z}
              : V3{0.0f, 0.0f, 0.0f};
   return valid;
+}
+
+// Complex arithmetic on (re, im) pairs in core/fresnel.py's order: a / b
+// (12) and the principal square root (12)
+__device__ __forceinline__ void c_div(float ar, float ai, float br, float bi,
+                                      float& re, float& im) {
+  const float scale = 1.0f / (br * br + bi * bi);
+  re = (ar * br + ai * bi) * scale;
+  im = (ai * br - ar * bi) * scale;
+}
+
+__device__ __forceinline__ void c_sqrt(float ar, float ai, float& re,
+                                       float& im) {
+  const float n = sqrtf(ar * ar + ai * ai);
+  const float t1 = sqrtf(0.5f * (n + fabsf(ar)));
+  const float t2 = 0.5f * ai / (t1 == 0.0f ? 1.0f : t1);
+  re = ar >= 0.0f ? t1 : fabsf(t2);
+  im = ar >= 0.0f ? t2 : (ai >= 0.0f ? t1 : -t1);
+}
+
+// Exact Fresnel reflectance for the complex IOR er - i ei (fresnel
+// fr_complex; 81)
+__device__ __forceinline__ float fr_complex(float cos_i, float er, float ei,
+                                            Ops& ops) {
+  ops.fp32 += 81;
+  const float ci = clamp(cos_i, 0.0f, 1.0f);
+  const float sin2_i = 1.0f - ci * ci;
+  const float e2r = er * er - ei * ei;
+  const float e2i = er * ei + ei * er;
+  float s2t_r, s2t_i;
+  c_div(sin2_i, 0.0f, e2r, e2i, s2t_r, s2t_i);
+  float ct_r, ct_i;
+  c_sqrt(1.0f - s2t_r, -s2t_i, ct_r, ct_i);
+  const float eci_r = er * ci;
+  const float eci_i = ei * ci;
+  float parl_r, parl_i;
+  c_div(eci_r - ct_r, eci_i - ct_i, eci_r + ct_r, eci_i + ct_i, parl_r,
+        parl_i);
+  const float ect_r = er * ct_r - ei * ct_i;
+  const float ect_i = er * ct_i + ei * ct_r;
+  float perp_r, perp_i;
+  c_div(ci - ect_r, -ect_i, ci + ect_r, ect_i, perp_r, perp_i);
+  return 0.5f * ((parl_r * parl_r + parl_i * parl_i) +
+                 (perp_r * perp_r + perp_i * perp_i));
+}
+
+// One channel of the conductor Fresnel from its reflectance color: eta 1,
+// k = 2 sqrt(r) / sqrt(1 - r), r clamped to [0, 0.9999] (fresnel
+// fresnel_conductor; 92)
+__device__ __forceinline__ float fresnel_conductor(float cos_i,
+                                                   float reflectance,
+                                                   Ops& ops) {
+  ops.fp32 += 11;
+  const float r = clamp(reflectance, 0.0f, kMaxReflectance);
+  const float k = 2.0f * safe_sqrt(r) /
+                  safe_sqrt(clamp_min(1.0f - r, 0.0f) + kKEps);
+  return fr_complex(cos_i, 1.0f, k, ops);
 }
 
 // ---------------------------------------------------------------------------
@@ -739,23 +826,32 @@ __device__ __forceinline__ void report(const Ops& ops,
 }
 
 // One block: 32 lanes x blockDim.y walk warps. Shared memory: the walks'
-// values [n_samples][32][3], then the lanes' float-hash seeds [32].
+// values [n_samples][32][3], then the lanes' float-hash seeds [32]. With
+// `type`, a lane of another type walks nothing and is written zero where
+// `others`, else left to lobes_f_kernel.
 template <bool kCount>
 __global__ void __launch_bounds__(kFThreads)
     layered_f_kernel(const int64_t* __restrict__ seed,
+                     const int* __restrict__ type,
                      const float* __restrict__ albedo,
                      const float* __restrict__ rough,
                      const float* __restrict__ wo,
                      const float* __restrict__ wi, const float* __restrict__ eta,
-                     int n, int n_samples, int max_depth, float neg_dz,
-                     int thin, float* __restrict__ out,
+                     int n, int others, int n_samples, int max_depth,
+                     float neg_dz, int thin, float* __restrict__ out,
                      unsigned long long* __restrict__ ops_out) {
   extern __shared__ float smem[];
   float* walk_vals = smem;
   uint32_t* rr_base = reinterpret_cast<uint32_t*>(smem + n_samples * 96);
   const int lane = threadIdx.x;
   const int i = blockIdx.x * 32 + lane;
-  const bool live = i < n;
+  const bool live =
+      i < n && (type == nullptr || type[i] == kGlossyDiffuse);
+  if (i < n && !live && others && threadIdx.y == 0) {
+    out[3 * i] = 0.0f;
+    out[3 * i + 1] = 0.0f;
+    out[3 * i + 2] = 0.0f;
+  }
   Ops ops;
   Lane L;
   bool same_hemi = false;
@@ -808,178 +904,420 @@ __global__ void __launch_bounds__(kFThreads)
 }
 
 // ---------------------------------------------------------------------------
-// sample: one walk a lane (glossy_diffuse.sample_plain)
+// The closed-form lobes, as bsdf/dispatch.py calls them
 // ---------------------------------------------------------------------------
 
-// The seed after the draws of depths [from, max_depth): 2 at a Lambert
-// (even) depth, 3 at a dielectric (odd) one.
-__device__ __forceinline__ uint32_t skip_draws(uint32_t seed, int from,
-                                               int max_depth) {
-  for (int d = from; d < max_depth; ++d) {
-    lcg(seed);
-    lcg(seed);
-    if (d & 1) lcg(seed);
-  }
-  return seed;
+// One sample's outputs (base.BSDFSample); as constructed, the invalid one
+struct Sample {
+  float color[3] = {0.0f, 0.0f, 0.0f};
+  V3 dir = {0.0f, 0.0f, 0.0f};
+  float pdf = 0.0f;
+  bool valid = false;
+  bool reflection = false;
+  bool transmission = false;
+  bool specular = false;
+  bool glossy = false;
+};
+
+// dispatch._mirror_z: the reflection through the tangent plane
+__device__ __forceinline__ V3 mirror_z(V3 v) { return {v.x, v.y, -v.z}; }
+
+// diffuse.f: albedo / pi where wo and wi share a hemisphere (5)
+__device__ __forceinline__ void diffuse_f(const float* alb, V3 wo, V3 wi,
+                                          float* f, Ops& ops) {
+  ops.fp32 += 5;
+  const bool same = wo.z * wi.z > 0.0f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) f[c] = same ? alb[c] * kInvPi : 0.0f;
 }
 
+// conductor.f: D F G / (4 cos_i cos_o), 0 for a smooth (delta) surface
+// (14, then 163 + 3 x 93)
+__device__ __forceinline__ void conductor_f(const float* alb, float alpha,
+                                            V3 wo, V3 wi, float* f,
+                                            Ops& ops) {
+  ops.fp32 += 14;
+  const float ct_o = fabsf(wo.z);
+  const float ct_i = fabsf(wi.z);
+  const V3 raw = {wi.x + wo.x, wi.y + wo.y, wi.z + wo.z};
+  const bool degenerate =
+      dot(raw, raw) == 0.0f || ct_i == 0.0f || ct_o == 0.0f;
+  if (!(wo.z * wi.z > 0.0f) || alpha < kSmoothAlpha || degenerate) {
+    f[0] = f[1] = f[2] = 0.0f;
+    return;
+  }
+  ops.fp32 += 10 + 3;
+  const V3 wm = normalize(raw, ops);
+  const float cos_m = fabsf(dot(wo, wm));
+  const float denom = 4.0f * ct_i * ct_o;
+  const float scale =
+      ggx_d(wm, alpha, ops) *
+      smith_g(smith_lambda(wo, alpha, ops), smith_lambda(wi, alpha, ops),
+              ops) /
+      (denom == 0.0f ? 1.0f : denom);
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    f[c] = scale * fresnel_conductor(cos_m, alb[c], ops);
+}
+
+// A closed-form lobe's value (t: DIFFUSE, kConductor or kDielectric), as
+// dispatch.f_plain computes it for a lane of that type
+__device__ __forceinline__ void closed_f(int t, const float* alb,
+                                         float alpha, V3 wo, V3 wi,
+                                         float eta, float* f, Ops& ops) {
+  if (t == kDielectric) {
+    ops.fp32 += 3;
+    const float v = dielectric_f(alpha, wo, wi, eta, nullptr, ops);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) f[c] = v * alb[c];
+    return;
+  }
+  const bool flip = wo.z < 0.0f;  // two-sided
+  const V3 wo_m = flip ? mirror_z(wo) : wo;
+  const V3 wi_m = flip ? mirror_z(wi) : wi;
+  if (t == kConductor)
+    conductor_f(alb, alpha, wo_m, wi_m, f, ops);
+  else
+    diffuse_f(alb, wo_m, wi_m, f, ops);
+}
+
+// diffuse.sample: a cosine-weighted direction (2 draws; 4)
+__device__ __forceinline__ void diffuse_sample(uint32_t seed, const float* alb,
+                                               Sample& s, Ops& ops) {
+  ops.fp32 += 4;
+  const LSample b = lambert_sample(seed, ops);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) s.color[c] = alb[c] * kInvPi;
+  s.dir = b.dir;
+  s.pdf = b.pdf;
+  s.valid = b.pdf > 0.0f;
+  s.reflection = true;
+}
+
+// conductor.sample: the mirror when smooth, else a visible microfacet
+// normal's reflection (sample_wm's 2 draws; 1, then 2 + 3 x 93 smooth or
+// 27 + 3 x 94 rough)
+__device__ __forceinline__ void conductor_sample(uint32_t seed,
+                                                 const float* alb,
+                                                 float alpha, V3 wo,
+                                                 Sample& s, Ops& ops) {
+  ops.fp32 += 1;
+  s.reflection = true;
+  if (alpha < kSmoothAlpha) {
+    ops.fp32 += 2;
+    s.dir = V3{-wo.x, -wo.y, wo.z};
+    const float ct = fabsf(s.dir.z);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      ops.fp32 += 1;
+      s.color[c] =
+          fresnel_conductor(ct, alb[c], ops) / (ct == 0.0f ? 1.0f : ct);
+    }
+    s.pdf = 1.0f;
+    s.valid = ct > 0.0f;
+    s.specular = true;
+    return;
+  }
+  ops.fp32 += 27;
+  const V3 wm = sample_wm(seed, wo, alpha, ops);
+  const float dwo = dot(wo, wm);
+  const float k = 2.0f * dwo;
+  s.dir = V3{-wo.x + k * wm.x, -wo.y + k * wm.y, -wo.z + k * wm.z};
+  const float awm = fabsf(dwo);
+  const float d = ggx_d(wm, alpha, ops);
+  const float l_o = smith_lambda(wo, alpha, ops);
+  s.pdf = vndf_pdf(wo, wm, l_o, d, ops) / (awm == 0.0f ? 1.0f : 4.0f * awm);
+  const float ct_o = fabsf(wo.z);
+  const float ct_i = fabsf(s.dir.z);
+  const float denom = 4.0f * ct_i * ct_o;
+  const float scale =
+      d * smith_g(l_o, smith_lambda(s.dir, alpha, ops), ops) /
+      (denom == 0.0f ? 1.0f : denom);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    ops.fp32 += 1;
+    s.color[c] = scale * fresnel_conductor(awm, alb[c], ops);
+  }
+  s.valid = wo.z != 0.0f && wo.z * s.dir.z > 0.0f && ct_i != 0.0f &&
+            ct_o != 0.0f && awm != 0.0f;
+  s.glossy = true;
+}
+
+// A closed-form lobe's sample (t: DIFFUSE, kConductor or kDielectric) from
+// the seed at that lobe's draws, as dispatch.sample_plain computes it for a
+// lane of that type
+__device__ __forceinline__ void closed_sample(int t, uint32_t seed,
+                                              const float* alb, float alpha,
+                                              V3 wo, float eta, Sample& s,
+                                              Ops& ops) {
+  if (t == kDielectric) {
+    ops.fp32 += 3;
+    const DSample d =
+        dielectric_sample<true, true, true>(seed, alpha, wo, eta, ops);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) s.color[c] = d.color * alb[c];
+    s.dir = d.dir;
+    s.pdf = d.pdf;
+    s.valid = d.valid;
+    s.reflection = !d.transmission;
+    s.transmission = d.transmission;
+    s.specular = d.specular;
+    s.glossy = !d.specular;
+    return;
+  }
+  const bool flip = wo.z < 0.0f;  // two-sided
+  if (t == kConductor)
+    conductor_sample(seed, alb, alpha, flip ? mirror_z(wo) : wo, s, ops);
+  else
+    diffuse_sample(seed, alb, s, ops);
+  if (flip) s.dir = mirror_z(s.dir);
+}
+
+// One thread a lane; a lane of the layered type, where the layered lobe is
+// asked for, is layered_f_kernel's, and is left as it is.
 template <bool kCount>
 __global__ void __launch_bounds__(kSampleThreads)
-    layered_sample_kernel(const int64_t* __restrict__ seed_in,
-                          const float* __restrict__ albedo,
-                          const float* __restrict__ rough,
-                          const float* __restrict__ wo_in,
-                          const float* __restrict__ eta, int n, int max_depth,
-                          float neg_dz, int thin,
-                          int64_t* __restrict__ seed_out,
-                          float* __restrict__ color_out,
-                          float* __restrict__ dir_out,
-                          float* __restrict__ pdf_out,
-                          uint8_t* __restrict__ flags_out,
-                          unsigned long long* __restrict__ ops_out) {
+    lobes_f_kernel(const int* __restrict__ type,
+                   const float* __restrict__ albedo,
+                   const float* __restrict__ rough,
+                   const float* __restrict__ wo, const float* __restrict__ wi,
+                   const float* __restrict__ eta, int n, int mask,
+                   float* __restrict__ out,
+                   unsigned long long* __restrict__ ops_out) {
   const int i = blockIdx.x * kSampleThreads + threadIdx.x;
   Ops ops;
   if (i < n) {
-    const Lane L = load_lane(seed_in, albedo, rough, wo_in, eta, i);
-    const bool flip = L.wo.z < 0.0f;  // two-sided
-    const V3 wo_up = flip ? neg(L.wo) : L.wo;
-    uint32_t seed = L.seed;
-
-    // entrance event at the coat
-    const DSample bs0 =
-        dielectric_sample<true, true, true>(seed, L.alpha, wo_up, L.eta, ops);
-    const bool bs0_ok = sample_ok(bs0);
-    const bool reflected = bs0_ok && !bs0.transmission;
-
-    // transmitted into the layer: the walk
-    bool walking = bs0_ok && bs0.transmission;
-    V3 w = bs0.dir;
-    const float f0 = bs0.color * fabsf(bs0.dir.z);
-    float f_val[3] = {f0, f0, f0};
-    float pdf_val = bs0.pdf;
-    bool specular_path = bs0.specular;
-    uint32_t seed_rr =
-        tea16(tea16(hash_key(wo_up.x), hash_key(wo_up.y)), seed);
-    bool done = false;
-    float out_color[3] = {0.0f, 0.0f, 0.0f};
-    V3 out_dir = {0.0f, 0.0f, 0.0f};
-    float out_pdf = 0.0f;
-    bool out_specular = false;
-
-    for (int depth = 0; depth < max_depth; ++depth) {
-      if (walking && depth > 3) {  // Russian roulette
-        ops.fp32 += 10;
-        const bool pdf_ok = pdf_val > kPdfMin;
-        const float rr_beta = pdf_ok ? amax3(f_val) / pdf_val : 1.0f;
-        const bool rr_on = rr_beta < kRRBeta;
-        const float q = clamp_min(1.0f - rr_beta, 0.0f);
-        const float u_rr = rnd(seed_rr, ops);
-        const bool die = rr_on && u_rr < q;
-        if (rr_on && !die) pdf_val = pdf_val * (1.0f - q);
-        walking = !die;
+    const int t = type[i];
+    const bool on = t >= 0 && t < kLobes && ((mask >> t) & 1);
+    if (!(on && t == kGlossyDiffuse)) {
+      float f[3] = {0.0f, 0.0f, 0.0f};
+      if (on) {
+        const float alb[3] = {albedo[3 * i], albedo[3 * i + 1],
+                              albedo[3 * i + 2]};
+        const float r = rough[i];
+        closed_f(t, alb, r * r, V3{wo[3 * i], wo[3 * i + 1], wo[3 * i + 2]},
+                 V3{wi[3 * i], wi[3 * i + 1], wi[3 * i + 2]}, eta[i], f, ops);
       }
-      walking = walking && w.z != 0.0f;
-      if (!walking) {
-        seed = skip_draws(seed, depth, max_depth);
-        break;
-      }
-      // advance to the other interface
-      const float tr = transmittance(neg_dz, thin, w, ops);
-      f_val[0] = f_val[0] * tr;
-      f_val[1] = f_val[1] * tr;
-      f_val[2] = f_val[2] * tr;
-      ops.fp32 += 3;
-      V3 bs_dir;
-      float bs_color[3], bs_pdf;
-      bool bs_ok, bs_transmission, bs_specular;
-      if ((depth & 1) == 0) {  // bottom: Lambert reflection
-        const LSample bs = lambert_sample(seed, ops);
-        bool color_nz = false;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          bs_color[c] = L.alb[c] * kInvPi;
-          color_nz = color_nz || bs_color[c] != 0.0f;
-        }
-        ops.fp32 += 9;
-        bs_dir = bs.dir;
-        bs_pdf = bs.pdf;
-        bs_ok = bs.pdf > 0.0f && color_nz && bs.pdf != 0.0f &&
-                bs.dir.z != 0.0f;
-        bs_transmission = false;
-        bs_specular = false;
-      } else {  // top: the coat reflects back down or transmits out
-        const DSample bs = dielectric_sample<true, true, true>(
-            seed, L.alpha, neg(w), L.eta, ops);
-        bs_dir = bs.dir;
-        bs_color[0] = bs_color[1] = bs_color[2] = bs.color;
-        bs_pdf = bs.pdf;
-        bs_ok = sample_ok(bs);
-        bs_transmission = bs.transmission;
-        bs_specular = bs.specular;
-      }
-      if (!bs_ok) {
-        seed = skip_draws(seed, depth + 1, max_depth);
-        break;
-      }
-      ops.fp32 += 4;
-      f_val[0] = f_val[0] * bs_color[0];
-      f_val[1] = f_val[1] * bs_color[1];
-      f_val[2] = f_val[2] * bs_color[2];
-      pdf_val = pdf_val * bs_pdf;
-      specular_path = specular_path && bs_specular;
-      w = bs_dir;
-      if (bs_transmission) {  // exit through the top
-        out_color[0] = f_val[0];
-        out_color[1] = f_val[1];
-        out_color[2] = f_val[2];
-        out_dir = w;
-        out_pdf = pdf_val;
-        out_specular = specular_path;
-        done = true;
-        seed = skip_draws(seed, depth + 1, max_depth);
-        break;
-      }
-      // cosine after an in-layer scattering event
-      ops.fp32 += 3;
-      const float cos_b = fabsf(bs_dir.z);
-      f_val[0] = f_val[0] * cos_b;
-      f_val[1] = f_val[1] * cos_b;
-      f_val[2] = f_val[2] * cos_b;
+      out[3 * i] = f[0];
+      out[3 * i + 1] = f[1];
+      out[3 * i + 2] = f[2];
     }
-
-    V3 dir;
-    float pdf;
-    bool valid, reflection, specular;
-    if (reflected) {
-      out_color[0] = out_color[1] = out_color[2] = bs0.color;
-      dir = bs0.dir;
-      pdf = bs0.pdf;
-      valid = true;
-      reflection = true;
-      specular = bs0.specular;
-    } else {
-      dir = out_dir;
-      pdf = out_pdf;
-      valid = done;
-      reflection = wo_up.z * out_dir.z > 0.0f;
-      specular = out_specular;
-    }
-    if (flip) dir = neg(dir);
-    seed_out[i] = static_cast<int64_t>(seed);
-    color_out[3 * i] = out_color[0];
-    color_out[3 * i + 1] = out_color[1];
-    color_out[3 * i + 2] = out_color[2];
-    dir_out[3 * i] = dir.x;
-    dir_out[3 * i + 1] = dir.y;
-    dir_out[3 * i + 2] = dir.z;
-    pdf_out[i] = pdf;
-    flags_out[i] = valid;
-    flags_out[n + i] = reflection;
-    flags_out[2 * n + i] = !reflection;
-    flags_out[3 * n + i] = specular;
-    flags_out[4 * n + i] = !specular;
   }
   if (kCount) report(ops, ops_out);
+}
+
+// ---------------------------------------------------------------------------
+// sample: one thread a lane, one walk a layered lane
+// (glossy_diffuse.sample_plain)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void layered_sample(uint32_t seed, const Lane& L,
+                                               int max_depth, float neg_dz,
+                                               bool thin, Sample& s,
+                                               Ops& ops) {
+  const bool flip = L.wo.z < 0.0f;  // two-sided
+  const V3 wo_up = flip ? neg(L.wo) : L.wo;
+
+  // entrance event at the coat
+  const DSample bs0 =
+      dielectric_sample<true, true, true>(seed, L.alpha, wo_up, L.eta, ops);
+  const bool bs0_ok = sample_ok(bs0);
+  const bool reflected = bs0_ok && !bs0.transmission;
+
+  // transmitted into the layer: the walk
+  bool walking = bs0_ok && bs0.transmission;
+  V3 w = bs0.dir;
+  const float f0 = bs0.color * fabsf(bs0.dir.z);
+  float f_val[3] = {f0, f0, f0};
+  float pdf_val = bs0.pdf;
+  bool specular_path = bs0.specular;
+  uint32_t seed_rr =
+      tea16(tea16(hash_key(wo_up.x), hash_key(wo_up.y)), seed);
+  bool done = false;
+  float out_color[3] = {0.0f, 0.0f, 0.0f};
+  V3 out_dir = {0.0f, 0.0f, 0.0f};
+  float out_pdf = 0.0f;
+  bool out_specular = false;
+
+  for (int depth = 0; depth < max_depth; ++depth) {
+    if (walking && depth > 3) {  // Russian roulette
+      ops.fp32 += 10;
+      const bool pdf_ok = pdf_val > kPdfMin;
+      const float rr_beta = pdf_ok ? amax3(f_val) / pdf_val : 1.0f;
+      const bool rr_on = rr_beta < kRRBeta;
+      const float q = clamp_min(1.0f - rr_beta, 0.0f);
+      const float u_rr = rnd(seed_rr, ops);
+      const bool die = rr_on && u_rr < q;
+      if (rr_on && !die) pdf_val = pdf_val * (1.0f - q);
+      walking = !die;
+    }
+    walking = walking && w.z != 0.0f;
+    if (!walking) break;
+    // advance to the other interface
+    const float tr = transmittance(neg_dz, thin, w, ops);
+    f_val[0] = f_val[0] * tr;
+    f_val[1] = f_val[1] * tr;
+    f_val[2] = f_val[2] * tr;
+    ops.fp32 += 3;
+    V3 bs_dir;
+    float bs_color[3], bs_pdf;
+    bool bs_ok, bs_transmission, bs_specular;
+    if ((depth & 1) == 0) {  // bottom: Lambert reflection
+      const LSample bs = lambert_sample(seed, ops);
+      bool color_nz = false;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        bs_color[c] = L.alb[c] * kInvPi;
+        color_nz = color_nz || bs_color[c] != 0.0f;
+      }
+      ops.fp32 += 9;
+      bs_dir = bs.dir;
+      bs_pdf = bs.pdf;
+      bs_ok = bs.pdf > 0.0f && color_nz && bs.pdf != 0.0f &&
+              bs.dir.z != 0.0f;
+      bs_transmission = false;
+      bs_specular = false;
+    } else {  // top: the coat reflects back down or transmits out
+      const DSample bs = dielectric_sample<true, true, true>(
+          seed, L.alpha, neg(w), L.eta, ops);
+      bs_dir = bs.dir;
+      bs_color[0] = bs_color[1] = bs_color[2] = bs.color;
+      bs_pdf = bs.pdf;
+      bs_ok = sample_ok(bs);
+      bs_transmission = bs.transmission;
+      bs_specular = bs.specular;
+    }
+    if (!bs_ok) break;
+    ops.fp32 += 4;
+    f_val[0] = f_val[0] * bs_color[0];
+    f_val[1] = f_val[1] * bs_color[1];
+    f_val[2] = f_val[2] * bs_color[2];
+    pdf_val = pdf_val * bs_pdf;
+    specular_path = specular_path && bs_specular;
+    w = bs_dir;
+    if (bs_transmission) {  // exit through the top
+      out_color[0] = f_val[0];
+      out_color[1] = f_val[1];
+      out_color[2] = f_val[2];
+      out_dir = w;
+      out_pdf = pdf_val;
+      out_specular = specular_path;
+      done = true;
+      break;
+    }
+    // cosine after an in-layer scattering event
+    ops.fp32 += 3;
+    const float cos_b = fabsf(bs_dir.z);
+    f_val[0] = f_val[0] * cos_b;
+    f_val[1] = f_val[1] * cos_b;
+    f_val[2] = f_val[2] * cos_b;
+  }
+
+  V3 dir;
+  if (reflected) {
+    s.color[0] = s.color[1] = s.color[2] = bs0.color;
+    dir = bs0.dir;
+    s.pdf = bs0.pdf;
+    s.valid = true;
+    s.reflection = true;
+    s.specular = bs0.specular;
+  } else {
+    s.color[0] = out_color[0];
+    s.color[1] = out_color[1];
+    s.color[2] = out_color[2];
+    dir = out_dir;
+    s.pdf = out_pdf;
+    s.valid = done;
+    s.reflection = wo_up.z * out_dir.z > 0.0f;
+    s.specular = out_specular;
+  }
+  s.dir = flip ? neg(dir) : dir;
+  s.transmission = !s.reflection;
+  s.glossy = !s.specular;
+}
+
+// lcg steps of each lobe's sample on every lane (0 for a lobe not asked for)
+struct Draws {
+  int n[kLobes];
+};
+
+struct SampleArgs {
+  const int64_t* seed;
+  const int* type;  // null: every lane is of the layered type
+  const float* albedo;
+  const float* rough;
+  const float* wo;
+  const float* eta;
+  int n;
+  int mask;  // bit t: lobe t is asked for
+  Draws draws;
+  int max_depth;
+  float neg_dz;
+  int thin;
+  int64_t* seed_out;
+  float* color;
+  float* dir;
+  float* pdf;
+  uint8_t* flags;
+  unsigned long long* ops;
+};
+
+// Instantiated for the closed-form lobes (kClosed), the layered one
+// (kLayered) or both, as `mask` asks.
+template <bool kCount, bool kClosed, bool kLayered>
+__global__ void __launch_bounds__(kSampleThreads)
+    lobes_sample_kernel(const SampleArgs a) {
+  const int i = blockIdx.x * kSampleThreads + threadIdx.x;
+  Ops ops;
+  if (i < a.n) {
+    const Lane L = load_lane(a.seed, a.albedo, a.rough, a.wo, a.eta, i);
+    const int t = a.type == nullptr ? kGlossyDiffuse : a.type[i];
+    // every lobe asked for draws on every lane, in lobe order; a lane
+    // samples its own from the seed at that lobe's offset
+    uint32_t seed = L.seed;
+    uint32_t own = seed;
+#pragma unroll
+    for (int lobe = 0; lobe < kLobes; ++lobe) {
+      if (lobe == t) own = seed;
+      for (int k = 0; k < a.draws.n[lobe]; ++k) lcg(seed);
+    }
+    Sample s;
+    if (t >= 0 && t < kLobes && ((a.mask >> t) & 1)) {
+      if (t == kGlossyDiffuse) {
+        if (kLayered)
+          layered_sample(own, L, a.max_depth, a.neg_dz, a.thin != 0, s, ops);
+      } else if (kClosed) {
+        closed_sample(t, own, L.alb, L.alpha, L.wo, L.eta, s, ops);
+      }
+    }
+    const int n = a.n;
+    a.seed_out[i] = static_cast<int64_t>(seed);
+    a.color[3 * i] = s.color[0];
+    a.color[3 * i + 1] = s.color[1];
+    a.color[3 * i + 2] = s.color[2];
+    a.dir[3 * i] = s.dir.x;
+    a.dir[3 * i + 1] = s.dir.y;
+    a.dir[3 * i + 2] = s.dir.z;
+    a.pdf[i] = s.pdf;
+    a.flags[i] = s.valid;
+    a.flags[n + i] = s.reflection;
+    a.flags[2 * n + i] = s.transmission;
+    a.flags[3 * n + i] = s.specular;
+    a.flags[4 * n + i] = s.glossy;
+  }
+  if (kCount) report(ops, a.ops);
+}
+
+template <bool kClosed, bool kLayered>
+void launch_sample(const SampleArgs& a, cudaStream_t s) {
+  const unsigned grid =
+      static_cast<unsigned>((a.n + kSampleThreads - 1) / kSampleThreads);
+  if (a.ops != nullptr)
+    lobes_sample_kernel<true, kClosed, kLayered>
+        <<<grid, kSampleThreads, 0, s>>>(a);
+  else
+    lobes_sample_kernel<false, kClosed, kLayered>
+        <<<grid, kSampleThreads, 0, s>>>(a);
 }
 
 size_t f_smem(int n_samples) {
@@ -990,18 +1328,22 @@ size_t f_smem(int n_samples) {
 
 extern "C" {
 
-// Both entry points launch on `stream`, do not synchronise, and return
-// cudaGetLastError() (0 on success). seed: [n] int64 holding u32; albedo,
-// wo, wi, rgb, color, dir: [n, 3]; rough, eta, pdf: [n]; flags: [5, n]
-// bytes (valid, reflection, transmission, specular, glossy); f takes
-// n_samples <= 127 (its walks' values fill 48 KB of shared memory). neg_dz is
+// Every entry point launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() (0 on success). seed: [n] int64 holding u32; type: [n]
+// int32 lobe ids (dispatch.py), or null where every lane is of the layered
+// type; albedo, wo, wi, rgb, color, dir: [n, 3]; rough, eta, pdf: [n];
+// flags: [5, n] bytes (valid, reflection, transmission, specular, glossy).
+// mask: bit t set where lobe t is asked for. layered_f takes n_samples <=
+// 127 (its walks' values fill 48 KB of shared memory) and writes only the
+// layered lanes of rgb, and the others zero where `others`. neg_dz is
 // -|thickness| in float32, thin is 1 where |thickness| is at most the
 // smallest normal float32 (transmittance 1). ops: null, or two uint64
 // counters the kernel adds its FP32 operations and float64 calls to.
-int layered_f(const int64_t* seed, const float* albedo, const float* rough,
-              const float* wo, const float* wi, const float* eta, int n,
-              int n_samples, int max_depth, float neg_dz, int thin,
-              float* rgb, unsigned long long* ops, void* stream) {
+int layered_f(const int64_t* seed, const int* type, const float* albedo,
+              const float* rough, const float* wo, const float* wi,
+              const float* eta, int n, int others, int n_samples,
+              int max_depth, float neg_dz, int thin, float* rgb,
+              unsigned long long* ops, void* stream) {
   if (n == 0) return 0;
   const size_t smem = f_smem(n_samples);  // up to 48 KB: n_samples <= 127
   if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
@@ -1010,32 +1352,55 @@ int layered_f(const int64_t* seed, const float* albedo, const float* rough,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ops != nullptr)
     layered_f_kernel<true><<<grid, block, smem, s>>>(
-        seed, albedo, rough, wo, wi, eta, n, n_samples, max_depth, neg_dz,
-        thin, rgb, ops);
+        seed, type, albedo, rough, wo, wi, eta, n, others, n_samples,
+        max_depth, neg_dz, thin, rgb, ops);
   else
     layered_f_kernel<false><<<grid, block, smem, s>>>(
-        seed, albedo, rough, wo, wi, eta, n, n_samples, max_depth, neg_dz,
-        thin, rgb, ops);
+        seed, type, albedo, rough, wo, wi, eta, n, others, n_samples,
+        max_depth, neg_dz, thin, rgb, ops);
   return static_cast<int>(cudaGetLastError());
 }
 
-int layered_sample(const int64_t* seed, const float* albedo,
-                   const float* rough, const float* wo, const float* eta,
-                   int n, int max_depth, float neg_dz, int thin,
-                   int64_t* seed_out, float* color, float* dir, float* pdf,
-                   uint8_t* flags, unsigned long long* ops, void* stream) {
+// Writes every lane of rgb but the layered ones where mask asks for the
+// layered lobe (layered_f's).
+int lobes_f(const int* type, const float* albedo, const float* rough,
+            const float* wo, const float* wi, const float* eta, int n,
+            int mask, float* rgb, unsigned long long* ops, void* stream) {
   if (n == 0) return 0;
   const unsigned grid =
       static_cast<unsigned>((n + kSampleThreads - 1) / kSampleThreads);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ops != nullptr)
-    layered_sample_kernel<true><<<grid, kSampleThreads, 0, s>>>(
-        seed, albedo, rough, wo, eta, n, max_depth, neg_dz, thin, seed_out,
-        color, dir, pdf, flags, ops);
+    lobes_f_kernel<true><<<grid, kSampleThreads, 0, s>>>(
+        type, albedo, rough, wo, wi, eta, n, mask, rgb, ops);
   else
-    layered_sample_kernel<false><<<grid, kSampleThreads, 0, s>>>(
-        seed, albedo, rough, wo, eta, n, max_depth, neg_dz, thin, seed_out,
-        color, dir, pdf, flags, ops);
+    lobes_f_kernel<false><<<grid, kSampleThreads, 0, s>>>(
+        type, albedo, rough, wo, wi, eta, n, mask, rgb, ops);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// draws: 4 host ints, the lcg steps of each lobe's sample (0 for a lobe not
+// in mask); the advanced seed is the input stepped by their sum.
+int lobes_sample(const int64_t* seed, const int* type, const float* albedo,
+                 const float* rough, const float* wo, const float* eta, int n,
+                 int mask, const int* draws, int max_depth, float neg_dz,
+                 int thin, int64_t* seed_out, float* color, float* dir,
+                 float* pdf, uint8_t* flags, unsigned long long* ops,
+                 void* stream) {
+  if (n == 0) return 0;
+  SampleArgs a{seed,  type,      albedo, rough,  wo,       eta,
+               n,     mask,      {},     max_depth, neg_dz, thin,
+               seed_out, color,  dir,    pdf,    flags,    ops};
+  for (int lobe = 0; lobe < kLobes; ++lobe) a.draws.n[lobe] = draws[lobe];
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool layered = (mask >> kGlossyDiffuse) & 1;
+  const bool closed = (mask & ((1 << kGlossyDiffuse) - 1)) != 0;
+  if (layered && closed)
+    launch_sample<true, true>(a, s);
+  else if (layered)
+    launch_sample<false, true>(a, s);
+  else
+    launch_sample<true, false>(a, s);
   return static_cast<int>(cudaGetLastError());
 }
 

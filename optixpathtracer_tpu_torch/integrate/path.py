@@ -221,7 +221,7 @@ def _shade_mat_segment(seed, surf, o, d, beta, alive, nee, gates,
                        active_lobes):
     """The material-dependent shading tail for one contiguous segment of a
     material-sorted wavefront: NEE f and contribution, BSDF sample,
-    throughput and ray update, with per-lobe gates (dispatch._gated).
+    throughput and ray update, with per-lobe gates (dispatch._lobes).
     Returns (seed, radiance_add, beta, o, d, alive)."""
     radiance_add = torch.zeros_like(beta)
     if nee is not None:

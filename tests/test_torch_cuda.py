@@ -40,12 +40,28 @@ def cuda():
 
 
 @contextlib.contextmanager
+def plain_bsdf():
+    """Route the CUDA path of the BSDF dispatch and of the layered lobe to
+    the plain versions."""
+    saved = (dispatch.f_kernel, dispatch.sample_kernel, gd.f_kernel,
+             gd.sample_kernel)
+    dispatch.f_kernel = dispatch.f_plain
+    dispatch.sample_kernel = dispatch.sample_plain
+    gd.f_kernel, gd.sample_kernel = gd.f_plain, gd.sample_plain
+    try:
+        yield
+    finally:
+        (dispatch.f_kernel, dispatch.sample_kernel, gd.f_kernel,
+         gd.sample_kernel) = saved
+
+
+@contextlib.contextmanager
 def plain_kernels():
-    """Route the CUDA path of the dense, walk and packet engines and of the
-    layered lobe to the plain versions."""
+    """Route the CUDA path of the dense, walk and packet engines, of the
+    BSDF dispatch and of the layered lobe to the plain versions."""
     saved = (dk.closest_kernel, dk.any_kernel, wk.candidates_kernel,
              wk.closest_kernel, wk.any_kernel, pk.packet_closest_kernel,
-             pk.packet_any_kernel, gd.f_kernel, gd.sample_kernel)
+             pk.packet_any_kernel)
     dk.closest_kernel = (lambda tris, boxes, n_live, *rays:
                          dk.closest_plain(tris, *rays))
     dk.any_kernel = (lambda tris, boxes, n_live, *rays:
@@ -59,13 +75,13 @@ def plain_kernels():
                                                  pk.packet_closest_plain)
     pk.packet_any_kernel = functools.partial(pk.plain_launch,
                                              pk.packet_any_plain)
-    gd.f_kernel, gd.sample_kernel = gd.f_plain, gd.sample_plain
     try:
-        yield
+        with plain_bsdf():
+            yield
     finally:
         (dk.closest_kernel, dk.any_kernel, wk.candidates_kernel,
          wk.closest_kernel, wk.any_kernel, pk.packet_closest_kernel,
-         pk.packet_any_kernel, gd.f_kernel, gd.sample_kernel) = saved
+         pk.packet_any_kernel) = saved
 
 
 def _sphere_floor_rays(device):
@@ -1008,29 +1024,166 @@ def test_layered_lobe_kernel_launch_errors_raise(cuda):
                     x["wi"], x["eta"], n_samples=0)
 
 
+def _lobe_launches():
+    """Launches of the layered f, closed-form f and sample kernels."""
+    return (gd.f_kernel.launches, gd.lobes_f_kernel.launches,
+            gd.lobes_sample_kernel.launches)
+
+
+def _launched(before):
+    return tuple(a - b for a, b in zip(_lobe_launches(), before))
+
+
 def test_layered_frame_lobe_kernels_equal_plain(cuda):
     """A 256x256 `layered` frame (2 bounces) through render_chunk with the
-    kernels equals the plain versions' bit for bit; each lobe kernel
-    launches once a bounce there, and not at all under param_gradients,
-    where autograd records the lobe."""
+    kernels equals the plain versions' bit for bit; the layered f and the
+    sample kernel launch once a bounce there, the closed-form f kernel not
+    at all (the scene has the layered lobe alone), and none under
+    param_gradients, where autograd records the lobe."""
     from optixpathtracer_tpu_torch.scene.flatten import scene_active_lobes
     model, camera, lights = PRESETS["layered"]()
     scene = flatten_model(model, lights, device=cuda)
     params = camera.raygen_params(256, 256, cuda)
     kw = dict(active_lobes=scene_active_lobes(scene), use_textures=False)
     accum = torch.zeros(256, 256, 3, device=cuda)
-    before = gd.f_kernel.launches, gd.sample_kernel.launches
+    before = _lobe_launches()
     img = path.render_chunk(scene, *params, 256, 256, accum, 0, 1, 2, **kw)
-    assert (gd.f_kernel.launches - before[0],
-            gd.sample_kernel.launches - before[1]) == (2, 2)
+    assert _launched(before) == (2, 0, 2)
     with plain_kernels():
         want = path.render_chunk(scene, *params, 256, 256, accum, 0, 1, 2,
                                  **kw)
     assert img.mean() > 0.005 and torch.equal(img, want)
 
-    before = gd.f_kernel.launches, gd.sample_kernel.launches
+    before = _lobe_launches()
     grads = param_gradients(scene, camera.raygen_params(32, 32, cuda), 32,
                             32, [0], fields=("mat_albedo", "mat_roughness"),
                             max_bounces=2)
     assert grads["mat_albedo"].abs().max() > 0
-    assert (gd.f_kernel.launches, gd.sample_kernel.launches) == before
+    assert _launched(before) == (0, 0, 0)
+
+
+# ---------------------------------------------------------------------------
+# The BSDF dispatch's kernels: each lane evaluates its own lobe
+# ---------------------------------------------------------------------------
+
+def _dispatch_inputs(device, seed):
+    """`_layered_inputs` with a material type a lane, of all four lobes and
+    metallic-mix (metallic in [0, 1]), resolved as the surface resolves it,
+    and two kinds of degenerate lanes, such as dead lanes carry: wo.z = 0
+    on 1/64 of the lanes, wo = wi = 0 on 1/64. The dielectric lanes with
+    wo.z < 0 and eta > 1 include total internal reflection."""
+    x = _layered_inputs(device, seed)
+    r = np.random.default_rng(seed)
+    t = functools.partial(torch.as_tensor, device=device)
+    wo, wi = x["wo"].clone(), x["wi"].clone()
+    wo[10::64, 2] = 0.0
+    wo[11::64] = 0.0
+    wi[11::64] = 0.0
+    mat = dispatch.MaterialParams(
+        albedo=x["albedo"],
+        metallic=t(r.uniform(0.0, 1.0, LOBE_LANES).astype(np.float32)),
+        roughness=x["roughness"], ior=x["eta"],
+        mat_type=t(r.integers(0, 5, LOBE_LANES).astype(np.int32)))
+    seed, mat = dispatch.resolve_stochastic_lobe(x["seed"], mat)
+    return seed, mat, wo, wi
+
+
+def _assert_outputs_equal(got, want, what):
+    """A dispatch call's (seed, rgb) or (seed, BSDFSample), bit for bit."""
+    (seed_k, rest_k), (seed_p, rest_p) = got, want
+    _assert_bits_equal(seed_k, seed_p, f"{what} seed")
+    if isinstance(rest_p, torch.Tensor):
+        _assert_bits_equal(rest_k, rest_p, f"{what} rgb")
+        return
+    for field in rest_p._fields:
+        _assert_bits_equal(getattr(rest_k, field), getattr(rest_p, field),
+                           f"{what} {field}")
+
+
+@pytest.mark.parametrize("lobes,gated_off", [
+    ((dispatch.DIFFUSE,), None),
+    ((dispatch.GLOSSY_DIFFUSE,), None),
+    (dispatch.ALL_LOBES, None),
+    (dispatch.ALL_LOBES, dispatch.CONDUCTOR),
+    (dispatch.ALL_LOBES, dispatch.GLOSSY_DIFFUSE),
+])
+def test_dispatch_kernels_equal_plain(cuda, lobes, gated_off):
+    """dispatch.f and sample through the kernels equal the plain dispatch
+    bit for bit on 2^20 lanes of every resolved type (`_dispatch_inputs`):
+    rgb and the unchanged seed; seed, color, direction, pdf and every
+    flag. Active lobes (0,), (3,) and all four, and all four with one
+    gated off. Only the kernels of the lobes asked for launch: the layered
+    f kernel for the layered lobe, the closed-form one for the others (or
+    where no lobe is asked for), one sample kernel."""
+    seed, mat, wo, wi = _dispatch_inputs(cuda, 40 + len(lobes))
+    gates = (None if gated_off is None
+             else {lobe: lobe != gated_off for lobe in lobes})
+    on = [lobe for lobe in lobes if lobe != gated_off]
+    layered = dispatch.GLOSSY_DIFFUSE in on
+    closed = any(lobe != dispatch.GLOSSY_DIFFUSE for lobe in on)
+    before = _lobe_launches()
+    with torch.no_grad():
+        got_f = dispatch.f(seed, mat, wo, wi, lobes, gates)
+        got_s = dispatch.sample(seed, mat, wo, lobes, gates)
+        assert _launched(before) == (layered, closed or not layered, 1)
+        with plain_bsdf():
+            want_f = dispatch.f(seed, mat, wo, wi, lobes, gates)
+            want_s = dispatch.sample(seed, mat, wo, lobes, gates)
+    torch.cuda.synchronize()
+    assert got_f[0] is seed and want_f[0] is seed
+    _assert_outputs_equal(got_f, want_f, "f")
+    _assert_outputs_equal(got_s, want_s, "sample")
+    t, rgb, s = mat.mat_type, got_f[1], got_s[1]
+    for lobe in on:  # each lobe asked for gives its own lanes values
+        own = t == lobe
+        assert (rgb[own] > 0).any() and s.valid[own].any(), lobe
+    off = ~torch.isin(t, torch.tensor(on, dtype=t.dtype, device=t.device))
+    assert not rgb[off].any() and not s.valid[off].any()
+
+
+def test_hall_frame_dispatch_kernels_equal_plain(cuda):
+    """One 1920x1080 hall frame (2 bounces: every lobe, textures, alpha
+    cutout) through render_chunk. At each bounce's wavefront the
+    dispatch's kernels equal the plain dispatch bit for bit on every lane,
+    dead ones included, and the frame equals the one whose dispatch runs
+    the plain versions (the intersection kernels in both) bit for bit.
+    Each of the three kernels launches once a bounce."""
+    from optixpathtracer_tpu_torch.integrate.cutout import \
+        scene_uses_alpha_cutout
+    from optixpathtracer_tpu_torch.scene.flatten import (
+        scene_active_lobes, scene_flat_shading, scene_uses_textures)
+    model, camera, lights = PRESETS["hall"]()
+    scene = flatten_model(model, lights, device=cuda)
+    w, h = 1920, 1080
+    params = camera.raygen_params(w, h, cuda)
+    kw = dict(active_lobes=scene_active_lobes(scene),
+              use_textures=scene_uses_textures(scene),
+              use_alpha_cutout=scene_uses_alpha_cutout(scene),
+              flat_shading=scene_flat_shading(scene))
+    assert kw["active_lobes"] == dispatch.ALL_LOBES
+    calls, saved = [], (dispatch.f_kernel, dispatch.sample_kernel)
+
+    def recorded(kind, fn):
+        def run(*args):
+            out = fn(*args)
+            calls.append((kind, args, out))
+            return out
+        return run
+
+    accum = torch.zeros(h, w, 3, device=cuda)
+    before = _lobe_launches()
+    dispatch.f_kernel = recorded("f", saved[0])
+    dispatch.sample_kernel = recorded("sample", saved[1])
+    try:
+        img = path.render_chunk(scene, *params, w, h, accum, 0, 1, 2, **kw)
+    finally:
+        dispatch.f_kernel, dispatch.sample_kernel = saved
+    assert _launched(before) == (2, 2, 2)
+    assert [c[0] for c in calls] == ["f", "sample"] * 2
+    plains = {"f": dispatch.f_plain, "sample": dispatch.sample_plain}
+    with torch.no_grad(), plain_bsdf():
+        for i, (kind, args, out) in enumerate(calls):
+            _assert_outputs_equal(out, plains[kind](*args),
+                                  f"bounce {i // 2} {kind}")
+        want = path.render_chunk(scene, *params, w, h, accum, 0, 1, 2, **kw)
+    assert img.mean() > 0.005 and torch.equal(img, want)

@@ -17,6 +17,8 @@ layered samples, in f and pdf but not in their ratio, the weight the integrator
 takes (see `assert_sample_close`); no branch (lobe choice, TIR, roulette)
 flips on them.
 """
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -442,6 +444,82 @@ def test_glossy_diffuse_kernel_routing(monkeypatch):
         glossy_diffuse.f(*args, wo)
         glossy_diffuse.sample(*args)
     assert calls == ["f", "sample"]
+
+
+def test_dispatch_kernel_routing(inputs, monkeypatch):
+    """The dispatch takes its kernels only where the layered lobe would
+    (`glossy_diffuse.uses_kernel`): never on the CPU, not while grad mode
+    is on and an input requires grad; and hands them the active lobes less
+    those gated off."""
+    n = 16
+    mat = _mats(inputs, dispatch, _t, n)
+    seed, wo, wi = (_t(inputs[k][:n]) for k in ("seed", "wo", "wi"))
+    calls = []
+    monkeypatch.setattr(dispatch, "f_kernel", lambda s, m, wo, wi, lobes:
+                        calls.append(("f", lobes)) or (s, None))
+    monkeypatch.setattr(dispatch, "sample_kernel", lambda s, m, wo, lobes:
+                        calls.append(("sample", lobes)) or (s, None))
+
+    def run(mat, **kw):
+        dispatch.f(seed, mat, wo, wi, **kw)
+        dispatch.sample(seed, mat, wo, **kw)
+
+    run(mat)
+    assert calls == []  # the CPU: the plain dispatch ran
+    monkeypatch.setattr(glossy_diffuse, "_on_cuda", lambda x: True)
+    grad_mat = mat._replace(albedo=mat.albedo.clone().requires_grad_())
+    run(grad_mat)
+    assert calls == []  # autograd records the albedo
+    with torch.no_grad():
+        run(grad_mat)
+    run(mat, active_lobes=(dispatch.DIFFUSE, dispatch.GLOSSY_DIFFUSE))
+    run(mat, gates={dispatch.DIFFUSE: True, dispatch.CONDUCTOR: False,
+                    dispatch.DIELECTRIC: True,
+                    dispatch.GLOSSY_DIFFUSE: True})
+    every, two = dispatch.ALL_LOBES, (dispatch.DIFFUSE,
+                                      dispatch.GLOSSY_DIFFUSE)
+    gated = (dispatch.DIFFUSE, dispatch.DIELECTRIC, dispatch.GLOSSY_DIFFUSE)
+    assert calls == [("f", every), ("sample", every), ("f", two),
+                     ("sample", two), ("f", gated), ("sample", gated)]
+
+
+def _lcg_steps(seed, advanced, most=64):
+    """k such that k lcg steps take every lane of `seed` to `advanced`."""
+    for k in range(most + 1):
+        if torch.equal(seed, advanced):
+            return k
+        seed = rng.lcg(seed)[0]
+    raise AssertionError(f"not within {most} lcg steps of the input")
+
+
+@pytest.mark.parametrize("lobes", [
+    lobes for k in range(len(dispatch.ALL_LOBES) + 1)
+    for lobes in itertools.combinations(dispatch.ALL_LOBES, k)])
+def test_sample_draw_counts(inputs, lobes):
+    """The draws the sample kernel steps a lane past each lobe by
+    (`dispatch.SAMPLE_DRAWS`) are the lcg steps each plain lobe's sample
+    takes on every lane, whatever its type: their sum over the lobes is
+    the plain dispatch's step on every lane, for every set of lobes."""
+    n = 64
+    mat = _mats(inputs, dispatch, _t, n)
+    seed, wo = _t(inputs["seed"][:n]), _t(inputs["wo"][:n])
+    advanced, _ = dispatch.sample_plain(seed, mat, wo, lobes)
+    assert _lcg_steps(seed, advanced) == sum(
+        dispatch.SAMPLE_DRAWS[lobe] for lobe in lobes)
+
+
+@pytest.mark.parametrize("max_depth", [0, 7, 12])
+def test_layered_sample_draw_count(inputs, max_depth):
+    """`glossy_diffuse.sample_draws` is the plain layered sample's lcg
+    steps at any walk depth."""
+    n = 64
+    x = {k: _t(inputs[k][:n]) for k in ("seed", "albedo", "rough", "wo",
+                                         "ior")}
+    advanced, _ = glossy_diffuse.sample_plain(
+        x["seed"], x["albedo"], x["rough"], x["wo"], x["ior"],
+        max_depth=max_depth)
+    assert _lcg_steps(x["seed"], advanced) == glossy_diffuse.sample_draws(
+        max_depth)
 
 
 def test_metallic_mix_resolution():
