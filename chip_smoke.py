@@ -83,16 +83,11 @@ runs the dense closest kernel over the 40-triangle cutout sub-scene).
    rays, hits, surfaces, NEE, BSDF samples, throughput) and the first
    stage that differs is printed, for Cornell, hall_small and `layered`
    (the last printed, not gated).
-4. Options phase: the `trace_paths` options at 1920x1080 through
-   `render_sample` (method "auto"). hall, 1 spp, 2 bounces, with
-   material_sort 0, 4, 8 and 16: wall ms, device-busy ms and launches of
-   the frame, and per bounce the lanes of each material bucket and the
-   segments whose gate is on, per lobe. sort_rays True and "morton", and
-   compact_shading 4, on `diffuse` (3 bounces) and hall: wall and device
-   ms, each image held to the unsorted frame (bit for bit expected).
-   Correctness: hall at 256x256, 2 spp, material_sort 8, through the
-   kernels against the plain versions, and hall_small at 48x48,
-   material_sort 4, GPU against CPU, by the engine-golden criterion.
+4. Options phase: the `trace_paths` ray sort at 1920x1080 through
+   `render_sample` (method "auto"), 1 spp: unsorted, sort_rays True and
+   "morton", on `diffuse` (3 bounces) and hall (2 bounces): wall ms,
+   device-busy ms and launches of the frame, each sorted image held to
+   the unsorted frame (bit for bit expected).
 5. Backward phase, in bench.py's fwd_bwd shape: `layered` at 256x256, 2
    bounces, frames 0-3, `diff.param_gradients` over the four material
    fields of the reference's material_grad_step (mean loss), once through
@@ -235,17 +230,15 @@ def cuda_time_ms(fn, reps):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route every kernel wrapper (dense, walk, packet, the BSDF dispatch's
-    and the layered lobe's) to its plain version."""
+    """Route every kernel wrapper (dense, walk, packet and the BSDF
+    dispatch's) to its plain version."""
     from optixpathtracer_tpu_torch.bsdf import dispatch
     from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
     from optixpathtracer_tpu_torch.intersect import packet_kernels as pk
     from optixpathtracer_tpu_torch.intersect import walk_kernels as wk
-    from optixpathtracer_tpu_torch.bsdf import glossy_diffuse as gd
     saved = (dk.closest_kernel, dk.any_kernel, wk.candidates_kernel,
              wk.closest_kernel, wk.any_kernel, pk.packet_closest_kernel,
-             pk.packet_any_kernel, gd.f_kernel, gd.sample_kernel,
-             dispatch.f_kernel, dispatch.sample_kernel)
+             pk.packet_any_kernel, dispatch.f_kernel, dispatch.sample_kernel)
     dk.closest_kernel = (lambda tris, boxes, n_live, *rays:
                          dk.closest_plain(tris, *rays))
     dk.any_kernel = (lambda tris, boxes, n_live, *rays:
@@ -259,7 +252,6 @@ def plain_kernels():
                                                  pk.packet_closest_plain)
     pk.packet_any_kernel = functools.partial(pk.plain_launch,
                                              pk.packet_any_plain)
-    gd.f_kernel, gd.sample_kernel = gd.f_plain, gd.sample_plain
     dispatch.f_kernel = dispatch.f_plain
     dispatch.sample_kernel = dispatch.sample_plain
     try:
@@ -267,13 +259,13 @@ def plain_kernels():
     finally:
         (dk.closest_kernel, dk.any_kernel, wk.candidates_kernel,
          wk.closest_kernel, wk.any_kernel, pk.packet_closest_kernel,
-         pk.packet_any_kernel, gd.f_kernel, gd.sample_kernel,
-         dispatch.f_kernel, dispatch.sample_kernel) = saved
+         pk.packet_any_kernel, dispatch.f_kernel,
+         dispatch.sample_kernel) = saved
 
 
 def kernel_wrappers():
     """{name: wrapper} of every hand-written kernel."""
-    from optixpathtracer_tpu_torch.bsdf import glossy_diffuse as gd
+    from optixpathtracer_tpu_torch.bsdf import kernels as bk
     from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
     from optixpathtracer_tpu_torch.intersect import packet_kernels as pk
     from optixpathtracer_tpu_torch.intersect import walk_kernels as wk
@@ -282,8 +274,8 @@ def kernel_wrappers():
             "walk_closest": wk.closest_kernel, "walk_any": wk.any_kernel,
             "packet_closest": pk.packet_closest_kernel,
             "packet_any": pk.packet_any_kernel,
-            "layered_f": gd.f_kernel, "lobes_f": gd.lobes_f_kernel,
-            "lobes_sample": gd.lobes_sample_kernel}
+            "layered_f": bk.layered_f, "lobes_f": bk.lobes_f,
+            "lobes_sample": bk.lobes_sample}
 
 
 @contextlib.contextmanager
@@ -1112,7 +1104,7 @@ def bsdf_phase(name, scene, camera, bounces, dev, card, stats):
     the bytes its lanes need."""
     import torch
     from optixpathtracer_tpu_torch.bsdf import dispatch
-    from optixpathtracer_tpu_torch.bsdf import glossy_diffuse as gd
+    from optixpathtracer_tpu_torch.bsdf import kernels as bk
     paths = {"f": dispatch.f_kernel, "sample": dispatch.sample_kernel}
     plains = {"f": dispatch.f_plain, "sample": dispatch.sample_plain}
     rows = {}
@@ -1151,10 +1143,10 @@ def bsdf_phase(name, scene, camera, bounces, dev, card, stats):
             out = torch.empty(wo.shape, dtype=torch.float32, device=dev)
             mask = dispatch.lobe_mask(lobes)
             launches = {
-                "layered_f": lambda o=None: gd.f_kernel(
-                    seed, mat.albedo, mat.roughness, wo, wi, mat.ior, ops=o,
-                    mat_type=mat.mat_type, out=out, others=not closed_lobes),
-                "lobes_f": lambda o=None: gd.lobes_f_kernel(
+                "layered_f": lambda o=None: bk.layered_f(
+                    seed, mat.mat_type, mat.albedo, mat.roughness, wo, wi,
+                    mat.ior, out, others=not closed_lobes, ops=o),
+                "lobes_f": lambda o=None: bk.lobes_f(
                     mat.mat_type, mat.albedo, mat.roughness, wo, wi,
                     mat.ior, mask, out, o),
                 "lobes_sample": lambda o=None: dispatch.sample_kernel(
@@ -1462,10 +1454,7 @@ def gpu_vs_cpu_phase(scenes, dev):
 # Options phase (the trace_paths options) and backward phase
 # ---------------------------------------------------------------------------
 
-MATERIAL_SORTS = (0, 4, 8, 16)
-SORTS = ({"sort_rays": True}, {"sort_rays": "morton"},
-         {"compact_shading": 4})
-LOBE_NAMES = ("diffuse", "conductor", "dielectric", "glossy_diffuse")
+SORTS = ({"sort_rays": True}, {"sort_rays": "morton"})
 GRAD_FIELDS = ("mat_albedo", "mat_metallic", "mat_roughness", "mat_ior")
 GRAD_SIZE, GRAD_FRAMES, GRAD_BOUNCES = 256, (0, 1, 2, 3), 2
 
@@ -1489,37 +1478,11 @@ def counted(what, kernels):
         raise AssertionError(f"{what}: {missing} never launched")
 
 
-@contextlib.contextmanager
-def material_sort_records(path):
-    """Record, per bounce of a material-sorted frame, the lanes of each
-    sort bucket (a device tensor, read after the frame) and the gates of
-    every segment."""
-    import torch
-    saved = (path._perm_from_key, path._shade_mat_segment)
-    bounces = []
-
-    def perm_from_key(key, n_buckets):
-        if n_buckets == path.N_MAT_BUCKETS:
-            bounces.append({"lanes": torch.bincount(key, minlength=n_buckets),
-                            "gates": []})
-        return saved[0](key, n_buckets)
-
-    def segment(*a, **k):
-        bounces[-1]["gates"].append(a[7])
-        return saved[1](*a, **k)
-
-    path._perm_from_key, path._shade_mat_segment = perm_from_key, segment
-    try:
-        yield bounces
-    finally:
-        path._perm_from_key, path._shade_mat_segment = saved
-
-
 def frame_runs(what, scene, camera, bounces, kernels, **options):
     """One 1-spp 1080p frame through render_sample ("auto"), twice: a
     profiled run (also the warm-up), then a timed run with the launch
-    counters and the material sort's records. Returns (image, {"wall_ms",
-    "launches", "profile", "seconds"}, the records)."""
+    counters. Returns (image, {"wall_ms", "launches", "profile",
+    "seconds"})."""
     import torch
     from optixpathtracer_tpu_torch.integrate import path
     t_start = time.perf_counter()
@@ -1531,14 +1494,13 @@ def frame_runs(what, scene, camera, bounces, kernels, **options):
                                   bounces, "auto", **flags, **options)
 
     profile = device_profile(frame)
-    with counted(what, kernels) as launches, \
-            material_sort_records(path) as records:
+    with counted(what, kernels) as launches:
         t0 = time.perf_counter()
         img = frame()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     return img, {"wall_ms": wall, "launches": launches, "profile": profile,
-                 "seconds": time.perf_counter() - t_start}, records
+                 "seconds": time.perf_counter() - t_start}
 
 
 def run_line(what, run):
@@ -1554,84 +1516,31 @@ def run_line(what, run):
 
 def options_phase(scenes, dev, stats):
     import torch
-    from optixpathtracer_tpu_torch.integrate import path
-    scene, camera, _, _ = scenes["hall"]
-    out = {"material_sort": {}, "sorts": {}}
-    unsorted = {}
-    for n in MATERIAL_SORTS:
-        img, run, records = frame_runs(f"hall material_sort={n}", scene,
-                                       camera, 2, CELL_KERNELS["hall"],
-                                       material_sort=n)
-        if n == 0:
-            unsorted["hall"] = img
-        if not torch.isfinite(img).all() or img.mean() <= 0:
-            raise AssertionError(f"hall material_sort={n}: bad image")
-        run_line(f"hall 1 spp material_sort={n}", run)
-        per_bounce = []
-        for b, rec in enumerate(records):
-            lanes = dict(zip(LOBE_NAMES + ("metallic_mix", "dead"),
-                             rec["lanes"].tolist()))
-            gates = {LOBE_NAMES[lobe]: sum(bool(g[lobe]) for g in
-                                           rec["gates"])
-                     for lobe in rec["gates"][0]}
-            per_bounce.append({"lanes": lanes, "gates_on": gates})
-            log(f"    bounce {b}: lanes per bucket {lanes}; of {n} "
-                f"segments, gate on {gates}")
-        out["material_sort"][n] = dict(run, per_bounce=per_bounce,
-                                       mean=float(img.mean()))
+    out = {"sorts": {}}
     for name, bounces in (("diffuse", 3), ("hall", 2)):
         scene, camera, _, _ = scenes[name]
-        if name not in unsorted:
-            unsorted[name], run, _ = frame_runs(f"{name} unsorted", scene,
-                                                camera, bounces,
-                                                CELL_KERNELS[name])
-            run_line(f"{name} 1 spp unsorted", run)
-            out["sorts"][f"{name} unsorted"] = run
+        unsorted, run = frame_runs(f"{name} unsorted", scene, camera,
+                                   bounces, CELL_KERNELS[name])
+        if not torch.isfinite(unsorted).all() or unsorted.mean() <= 0:
+            raise AssertionError(f"{name} unsorted: bad image")
+        run_line(f"{name} 1 spp unsorted", run)
+        out["sorts"][f"{name} unsorted"] = run
         for opt in SORTS:
             what = f"{name} {opt}"
-            img, run, _ = frame_runs(what, scene, camera, bounces,
-                                     CELL_KERNELS[name], **opt)
-            diff = float((img - unsorted[name]).abs().max())
-            same = bool(torch.equal(img, unsorted[name]))
+            img, run = frame_runs(what, scene, camera, bounces,
+                                  CELL_KERNELS[name], **opt)
+            diff = float((img - unsorted).abs().max())
+            same = bool(torch.equal(img, unsorted))
             run_line(f"{name} 1 spp {opt}", run)
             log("    image bit for bit the unsorted one" if same else
                 f"    image differs from the unsorted one: max |diff| "
                 f"{diff:.3g}")
             if not same:
                 assert_render_match(img.cpu().numpy(),
-                                    unsorted[name].cpu().numpy(),
+                                    unsorted.cpu().numpy(),
                                     f"{what} vs unsorted")
             out["sorts"][what] = dict(run, bit_identical=same,
                                       max_abs_diff=diff)
-    # correctness: kernels against plain versions, GPU against CPU
-    t0 = time.perf_counter()
-    scene, camera, _, _ = scenes["hall"]
-    pos, iv, ip = camera.raygen_params(SMALL, SMALL, dev)
-    zeros = torch.zeros((SMALL, SMALL, 3), device=dev)
-    flags = scene_flags(scene)
-    with counted("hall material_sort=8 256x256", CELL_KERNELS["hall"]):
-        small = path.render_chunk(scene, pos, iv, ip, SMALL, SMALL, zeros, 0,
-                                  2, 2, "auto", material_sort=8, **flags)
-    with plain_kernels():
-        plain = path.render_chunk(scene, pos, iv, ip, SMALL, SMALL, zeros, 0,
-                                  2, 2, "auto", material_sort=8, **flags)
-    assert_render_match(small.cpu().numpy(), plain.cpu().numpy(),
-                        f"hall {SMALL}x{SMALL} 2 spp material_sort=8 kernels "
-                        f"vs plain ({time.perf_counter() - t0:.1f} s)")
-    t0 = time.perf_counter()
-    from optixpathtracer_tpu_torch.scene import flatten_model
-    from optixpathtracer_tpu_torch.scene.procedural import PRESETS
-    model, camera, lights = PRESETS["hall_small"]()
-    scene = flatten_model(model, lights, device=dev)
-    imgs = []
-    for s in (scene, scene.to("cpu")):
-        params = camera.raygen_params(48, 48, s.device)
-        acc = torch.zeros((48, 48, 3), device=s.device)
-        imgs.append(path.render_chunk(
-            s, *params, 48, 48, acc, 0, 2, 2, "packet", material_sort=4,
-            **scene_flags(s)).cpu().numpy())
-    assert_render_match(*imgs, f"hall_small 48x48 2 spp material_sort=4 GPU "
-                        f"vs CPU (packet; {time.perf_counter() - t0:.1f} s)")
     stats["options"] = out
 
 
@@ -2302,8 +2211,6 @@ def main():
     # the launches of the options, backward and front-end paths, by path
     opt, bwd = stats["options"], stats["backward"]
     path_launches = {
-        **{f"options: hall material_sort={n}": r["launches"]
-           for n, r in opt["material_sort"].items()},
         **{f"options: {what}": r["launches"]
            for what, r in opt["sorts"].items()},
         "backward: layered": bwd["launches"],

@@ -21,10 +21,11 @@ front end.
               `walk_intersect.cu`, `packet_intersect.cu`) and plain
               PyTorch versions for the CPU, and the detach/refine API
   bsdf/       the diffuse, conductor, dielectric and layered glossy-diffuse
-              lobes and their dispatch
+              lobes and their dispatch, which alone chooses between the
+              lobes and their kernels (`csrc/layered_bsdf.cu`)
   integrate/  surface context (textured), the wavefront path integrator
-              with NEE and its ray, segment and material sorts, and the
-              alpha-cutout re-trace chains
+              with NEE and its ray sorts, and the alpha-cutout re-trace
+              chains
   diff/       gradients of a rendered loss w.r.t. the material table and
               the lights (autograd), their finite-difference check, and the
               differentiable replay of the material-test scenes

@@ -4,14 +4,14 @@
 Materials carry a first-class type enum. The plain dispatch (`f_plain`,
 `sample_plain`) evaluates every lobe in `lobes` on every lane and
 lane-selects, so the wavefront stays dense and every lobe advances the RNG
-streams the same way on every lane, as in the reference. On CUDA inputs that
-autograd does not record (`glossy_diffuse.uses_kernel`), `f` and `sample`
-run the kernels of `csrc/layered_bsdf.cu` instead (`f_kernel`,
-`sample_kernel`), bit for bit the plain dispatch: each lane evaluates only
-its own lobe, and steps its seed past the other lobes' draws
-(`SAMPLE_DRAWS`). The material-sorted shading of `trace_paths`
-(`material_sort`) also passes `gates`, one host bool a lobe: a lobe gated
-off is skipped outright, and draws nothing.
+streams the same way on every lane, as in the reference. This module alone
+chooses how the BSDF runs: on CUDA inputs that autograd does not record
+(`uses_kernel`), `f` and `sample` run the kernels of `csrc/layered_bsdf.cu`
+(`f_kernel`, `sample_kernel`, launched by `kernels.py`), bit for bit the
+plain dispatch: each lane evaluates only its own lobe, and steps its seed
+past the other lobes' draws (`SAMPLE_DRAWS`). Everywhere else, on the CPU
+and under autograd, they run the plain dispatch, whose lobes are plain on
+every device.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from . import conductor as _conductor
 from . import dielectric as _dielectric
 from . import diffuse as _diffuse
 from . import glossy_diffuse as _glossy
+from . import kernels as _kernels
 from .base import BSDFSample, where_sample
 
 DIFFUSE = 0
@@ -81,41 +82,36 @@ def _mirror_z(v):
 # itself (`GlossyDiffuse.h:110-135`).
 
 
-def _lobes(active_lobes, gates):
-    """The lobes that evaluate and draw: those of the static `active_lobes`
-    that `gates` (lobe -> bool, or None) does not turn off. The
-    reference's lax.cond becomes a host `if`. A gated-off lobe does not
-    advance the RNG streams it would have used, so material-sorted images
-    differ from unsorted ones by decorrelated samples (as unbiased, not
-    bit-identical)."""
-    return tuple(lobe for lobe in active_lobes
-                 if gates is None or gates[lobe])
+def _on_cuda(x):
+    return x.is_cuda
 
 
-def _uses_kernel(seed, mat, wo, *wi):
-    return _glossy.uses_kernel(wo, *wi, seed, mat.albedo, mat.roughness,
-                               mat.ior)
+def uses_kernel(seed, mat: MaterialParams, wo, *wi):
+    """Whether `f` and `sample` run as the kernels on these inputs: they lie
+    on CUDA and autograd records none of them (the kernels have no
+    backward)."""
+    inputs = (wo, *wi, seed, mat.albedo, mat.roughness, mat.ior)
+    return _on_cuda(wo) and not (
+        torch.is_grad_enabled() and any(x.requires_grad for x in inputs))
 
 
 @spans.traced(spans.BSDF_F)
-def f(seed, mat: MaterialParams, wo, wi, active_lobes=ALL_LOBES,
-      gates=None):
+def f(seed, mat: MaterialParams, wo, wi, active_lobes=ALL_LOBES):
     """Evaluate the BSDF for every lane (resolved types only: call
     `resolve_stochastic_lobe` first). Returns (seed, rgb). `active_lobes`
-    (static) prunes lobes absent from the scene; `gates` skips lobes at run
-    time (`_lobes`). The seed is handed back unchanged, as the layered lobe
+    (static) prunes lobes absent from the scene: a lane of an absent lobe
+    gets zeros. The seed is handed back unchanged, as the layered lobe
     hands it back in the reference."""
-    run = f_kernel if _uses_kernel(seed, mat, wo, wi) else f_plain
-    return run(seed, mat, wo, wi, _lobes(active_lobes, gates))
+    run = f_kernel if uses_kernel(seed, mat, wo, wi) else f_plain
+    return run(seed, mat, wo, wi, active_lobes)
 
 
 @spans.traced(spans.BSDF_SAMPLE)
-def sample(seed, mat: MaterialParams, wo, active_lobes=ALL_LOBES,
-           gates=None):
-    """Importance-sample the BSDF per lane. Returns (seed, BSDFSample).
-    `active_lobes`, `gates`: see f()."""
-    run = sample_kernel if _uses_kernel(seed, mat, wo) else sample_plain
-    return run(seed, mat, wo, _lobes(active_lobes, gates))
+def sample(seed, mat: MaterialParams, wo, active_lobes=ALL_LOBES):
+    """Importance-sample the BSDF per lane. Returns (seed, BSDFSample); a
+    lane of a lobe absent from `active_lobes` gets the invalid sample."""
+    run = sample_kernel if uses_kernel(seed, mat, wo) else sample_plain
+    return run(seed, mat, wo, active_lobes)
 
 
 def f_plain(seed, mat: MaterialParams, wo, wi, lobes):
@@ -182,20 +178,19 @@ def lobe_mask(lobes):
 
 def f_kernel(seed, mat: MaterialParams, wo, wi, lobes, ops=None):
     """`f_plain` through the kernels, each lane evaluating its own lobe
-    only, into one buffer: the layered lobe's walks
-    (`glossy_diffuse.f_kernel`, on the layered lanes) and the closed-form
-    lobes' kernel (on the others), each launched only where `lobes` needs
-    it. ops: see glossy_diffuse.f_kernel (both kernels add to it)."""
+    only, into one buffer: the layered lobe's walks (`kernels.layered_f`,
+    on the layered lanes) and the closed-form lobes' kernel (on the
+    others), each launched only where `lobes` needs it. ops: see
+    kernels.layered_f (both kernels add to it)."""
     out = torch.empty(wo.shape, dtype=torch.float32, device=wo.device)
     closed = [lobe for lobe in lobes if lobe != GLOSSY_DIFFUSE]
     layered = GLOSSY_DIFFUSE in lobes
     if layered:
-        _glossy.f_kernel(seed, mat.albedo, mat.roughness, wo, wi, mat.ior,
-                         ops=ops, mat_type=mat.mat_type, out=out,
-                         others=not closed)
+        _kernels.layered_f(seed, mat.mat_type, mat.albedo, mat.roughness, wo,
+                           wi, mat.ior, out, others=not closed, ops=ops)
     if closed or not layered:
-        _glossy.lobes_f_kernel(mat.mat_type, mat.albedo, mat.roughness, wo,
-                               wi, mat.ior, lobe_mask(lobes), out, ops)
+        _kernels.lobes_f(mat.mat_type, mat.albedo, mat.roughness, wo, wi,
+                         mat.ior, lobe_mask(lobes), out, ops)
     return seed, out
 
 
@@ -203,9 +198,9 @@ def sample_kernel(seed, mat: MaterialParams, wo, lobes, ops=None):
     """`sample_plain` through one kernel, each lane sampling its own lobe
     only. ops: see f_kernel."""
     draws = [SAMPLE_DRAWS[lobe] if lobe in lobes else 0 for lobe in ALL_LOBES]
-    return _glossy.lobes_sample_kernel(seed, mat.albedo, mat.roughness, wo,
-                                       mat.ior, mat.mat_type,
-                                       lobe_mask(lobes), draws, ops=ops)
+    return _kernels.lobes_sample(seed, mat.mat_type, mat.albedo,
+                                 mat.roughness, wo, mat.ior,
+                                 lobe_mask(lobes), draws, ops=ops)
 
 
 def pdf(mat: MaterialParams, wo, wi, layered: str = "error"):

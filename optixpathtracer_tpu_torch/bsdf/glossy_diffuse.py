@@ -16,23 +16,14 @@ roulette. f() evaluates its n_samples estimator walks as one leading axis,
 each with its own TEA-folded stream, and leaves the caller's seed as it
 was.
 
-f and sample each have two implementations of one contract, equal bit for
-bit: CUDA kernels (`csrc/layered_bsdf.cu`, launched by `f_kernel` and
-`sample_kernel`) and the plain PyTorch versions `f_plain` and
-`sample_plain`. `uses_kernel` picks between them: the kernels run on CUDA
-inputs that autograd does not record (they have no backward); the plain
-versions on the CPU and under autograd on the card. The launchers of that
-file's other kernels live here too, for `dispatch.py`, which runs each lane's
-own lobe only: `lobes_f_kernel` (the closed-form lobes' value),
-`lobes_sample_kernel` (a sample of any lobe) and `f_kernel`'s per-type gate.
+This is the plain lobe, on every device. Its CUDA kernels
+(`csrc/layered_bsdf.cu`, bit for bit this lobe) run only where
+`dispatch.py` chooses them.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from .. import _build
 from ..core import rng
 from ..core.math import abs_cos_theta, div, exp, same_hemisphere, sqr
 from . import dielectric as _dielectric
@@ -83,7 +74,7 @@ def _per_pdf(color, cos, pdf):
             / torch.where(pdf == 0.0, 1.0, pdf)[..., None])
 
 
-def f_plain(seed, albedo, roughness, wo, wi, eta=DEFAULT_IOR,
+def f(seed, albedo, roughness, wo, wi, eta=DEFAULT_IOR,
             n_samples=N_SAMPLES, max_depth=MAX_DEPTH, thickness=THICKNESS):
     """Stochastic estimate of the layered BSDF value, the mean of n_samples
     random walks (reference `GlossyDiffuse.h:141-367`). Returns
@@ -196,7 +187,7 @@ def f_plain(seed, albedo, roughness, wo, wi, eta=DEFAULT_IOR,
     return seed, div(total, float(n_samples))
 
 
-def sample_plain(seed, albedo, roughness, wo, eta=DEFAULT_IOR,
+def sample(seed, albedo, roughness, wo, eta=DEFAULT_IOR,
                  max_depth=MAX_DEPTH, thickness=THICKNESS):
     """Sample the layered BSDF with one random walk (reference
     `GlossyDiffuse.h:372-524`). The pdf is the product of the walk's pdfs,
@@ -298,208 +289,8 @@ def sample_plain(seed, albedo, roughness, wo, eta=DEFAULT_IOR,
                               walk_sample)
 
 
-# ---------------------------------------------------------------------------
-# CUDA kernels (csrc/layered_bsdf.cu)
-# ---------------------------------------------------------------------------
-
-def _on_cuda(x):
-    return x.is_cuda
-
-
-def uses_kernel(*inputs):
-    """Whether the lobe runs as its CUDA kernel on these inputs (tensors
-    and Python numbers, the first a tensor): they lie on CUDA and autograd
-    records nothing of them."""
-    tensors = [x for x in inputs if isinstance(x, torch.Tensor)]
-    return _on_cuda(tensors[0]) and not (
-        torch.is_grad_enabled() and any(x.requires_grad for x in tensors))
-
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
-_ARGTYPES = {
-    "layered_f": [_P] * 7 + [_I, _I, _I, _I, _F, _I, _P, _P, _P],
-    "lobes_f": [_P] * 6 + [_I, _I, _P, _P, _P],
-    "lobes_sample": [_P] * 6 + [_I, _I, _P, _I, _F, _I] + [_P] * 7,
-}
-# this lobe's bit in the kernels' lobe masks (dispatch.GLOSSY_DIFFUSE = 3)
-_LAYERED_MASK = 1 << 3
-
-
-def _fn(name):
-    fn = getattr(_build.load("layered_bsdf"), name)
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _lanes(wo, *specs):
-    """Each (x, dtype, tail) of `specs` broadcast to wo's lanes and made
-    contiguous as [n, *tail]; raise unless it is of that dtype on wo's
-    CUDA device. A Python number becomes a tensor of the dtype; None stays
-    None."""
-    batch, out = wo.shape[:-1], []
-    for x, dtype, tail in specs:
-        if x is None:
-            out.append(None)
-            continue
-        if not isinstance(x, torch.Tensor):
-            x = torch.full((), x, dtype=dtype, device=wo.device)
-        if not (x.is_cuda and x.device == wo.device and x.dtype == dtype):
-            raise ValueError(f"kernel input {tuple(x.shape)} {x.dtype} on "
-                             f"{x.device}: expected {dtype} on {wo.device}")
-        out.append(x.expand(batch + tail).reshape((-1,) + tail).contiguous())
-    if out[0].shape[0] >= 2**31:
-        raise ValueError("too many lanes for one launch")
-    return out
-
-
-def _ptr(x):
-    return None if x is None else x.data_ptr()
-
-
-def _out(out, wo):
-    """`out`, or a new float32 tensor of wo's shape; raise unless it is a
-    contiguous one on wo's device."""
-    if out is None:
-        return torch.empty(wo.shape, dtype=torch.float32, device=wo.device)
-    if not (out.shape == wo.shape and out.dtype == torch.float32
-            and out.device == wo.device and out.is_contiguous()):
-        raise ValueError(f"kernel output {tuple(out.shape)} {out.dtype} on "
-                         f"{out.device}: expected contiguous float32 "
-                         f"{tuple(wo.shape)} on {wo.device}")
-    return out
-
-
-def _launch(name, *args, device):
-    with torch.cuda.device(device):
-        err = _fn(name)(*args, torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
-
-def _layer_args(n_samples, max_depth, thickness):
-    if n_samples < 1 or max_depth < 0:
-        raise ValueError(f"n_samples {n_samples} < 1 or max_depth "
-                         f"{max_depth} < 0")
-    return -abs(thickness), int(abs(thickness) <= _F32_TINY)
-
-
 def sample_draws(max_depth=MAX_DEPTH):
-    """The lcg steps `sample_plain` takes on every lane: the entrance coat
+    """The lcg steps `sample` takes on every lane: the entrance coat
     event's 3, then 2 at each Lambert (even) depth and 3 at each coat (odd)
     one, whether the walk goes on or not."""
     return 3 + sum(3 if depth & 1 else 2 for depth in range(max_depth))
-
-
-def f_kernel(seed, albedo, roughness, wo, wi, eta=DEFAULT_IOR,
-             n_samples=N_SAMPLES, max_depth=MAX_DEPTH, thickness=THICKNESS,
-             ops=None, mat_type=None, out=None, others=True):
-    """Launch the f kernel: (seed, rgb), the seed handed back unchanged.
-    ops: None, or a CUDA uint64 [2] tensor the kernel adds its FP32
-    operations and float64 calls to. mat_type: None (every lane is of this
-    lobe), or the lanes' int32 lobe ids (dispatch.py): a lane of another
-    type walks nothing, and its rgb is written zero where `others`, else
-    left as it is in `out` (a contiguous float32 tensor of wo's shape, or
-    None for a new one)."""
-    neg_dz, thin = _layer_args(n_samples, max_depth, thickness)
-    f32 = torch.float32
-    wo_l, wi_l, seed_l, alb_l, rough_l, eta_l, type_l = _lanes(
-        wo, (wo, f32, (3,)), (wi, f32, (3,)), (seed, torch.int64, ()),
-        (albedo, f32, (3,)), (roughness, f32, ()), (eta, f32, ()),
-        (mat_type, torch.int32, ()))
-    out = _out(out, wo)
-    _launch("layered_f", seed_l.data_ptr(), _ptr(type_l), alb_l.data_ptr(),
-            rough_l.data_ptr(), wo_l.data_ptr(), wi_l.data_ptr(),
-            eta_l.data_ptr(), wo_l.shape[0], int(others), n_samples,
-            max_depth, neg_dz, thin, out.data_ptr(), _ptr(ops),
-            device=wo.device)
-    f_kernel.launches += 1
-    return seed, out
-
-
-def lobes_f_kernel(mat_type, albedo, roughness, wo, wi, eta, mask, out,
-                   ops=None):
-    """Launch the closed-form lobes' f kernel into `out` (a contiguous
-    float32 tensor of wo's shape): lobe t's value on each lane of type t
-    whose bit is in `mask`, zero on the others, but the layered lanes where
-    mask has the layered lobe's bit, which are f_kernel's and left as they
-    are. ops: see f_kernel."""
-    f32 = torch.float32
-    type_l, alb_l, rough_l, wo_l, wi_l, eta_l = _lanes(
-        wo, (mat_type, torch.int32, ()), (albedo, f32, (3,)),
-        (roughness, f32, ()), (wo, f32, (3,)), (wi, f32, (3,)),
-        (eta, f32, ()))
-    out = _out(out, wo)
-    _launch("lobes_f", type_l.data_ptr(), alb_l.data_ptr(),
-            rough_l.data_ptr(), wo_l.data_ptr(), wi_l.data_ptr(),
-            eta_l.data_ptr(), wo_l.shape[0], mask, out.data_ptr(), _ptr(ops),
-            device=wo.device)
-    lobes_f_kernel.launches += 1
-
-
-def lobes_sample_kernel(seed, albedo, roughness, wo, eta, mat_type, mask,
-                        draws, max_depth=MAX_DEPTH, thickness=THICKNESS,
-                        ops=None):
-    """Launch the sample kernel: lobe t's sample on each lane of type t
-    whose bit is in `mask`, the invalid sample on the others. Every lobe t
-    of `mask` takes draws[t] lcg steps on every lane, in lobe order, a lane
-    sampling its own from the seed at that lobe's offset. mat_type: the
-    lanes' int32 lobe ids, or None where every lane is of this lobe.
-    Returns (seed, BSDFSample). ops: see f_kernel."""
-    neg_dz, thin = _layer_args(1, max_depth, thickness)
-    f32 = torch.float32
-    batch, dev = wo.shape[:-1], wo.device
-    wo_l, seed_l, alb_l, rough_l, eta_l, type_l = _lanes(
-        wo, (wo, f32, (3,)), (seed, torch.int64, ()), (albedo, f32, (3,)),
-        (roughness, f32, ()), (eta, f32, ()), (mat_type, torch.int32, ()))
-    seed_out = torch.empty(batch, dtype=torch.int64, device=dev)
-    color = torch.empty(wo.shape, dtype=f32, device=dev)
-    direction = torch.empty(wo.shape, dtype=f32, device=dev)
-    pdf = torch.empty(batch, dtype=f32, device=dev)
-    flags = torch.empty((5,) + batch, dtype=torch.bool, device=dev)
-    _launch("lobes_sample", seed_l.data_ptr(), _ptr(type_l),
-            alb_l.data_ptr(), rough_l.data_ptr(), wo_l.data_ptr(),
-            eta_l.data_ptr(), wo_l.shape[0], mask, (ctypes.c_int * 4)(*draws),
-            max_depth, neg_dz, thin, seed_out.data_ptr(), color.data_ptr(),
-            direction.data_ptr(), pdf.data_ptr(), flags.data_ptr(), _ptr(ops),
-            device=dev)
-    lobes_sample_kernel.launches += 1
-    return seed_out, BSDFSample(color, direction, pdf, *flags.unbind(0))
-
-
-def sample_kernel(seed, albedo, roughness, wo, eta=DEFAULT_IOR,
-                  max_depth=MAX_DEPTH, thickness=THICKNESS, ops=None):
-    """Launch the sample kernel for this lobe on every lane: (seed,
-    BSDFSample). ops: see f_kernel."""
-    sample_kernel.launches += 1
-    return lobes_sample_kernel(seed, albedo, roughness, wo, eta, None,
-                               _LAYERED_MASK,
-                               (0, 0, 0, sample_draws(max_depth)), max_depth,
-                               thickness, ops)
-
-
-f_kernel.launches = 0
-lobes_f_kernel.launches = 0
-lobes_sample_kernel.launches = 0
-sample_kernel.launches = 0
-
-
-def f(seed, albedo, roughness, wo, wi, eta=DEFAULT_IOR, n_samples=N_SAMPLES,
-      max_depth=MAX_DEPTH, thickness=THICKNESS):
-    """The layered BSDF value, (seed, rgb): `f_plain`'s, through the kernel
-    where `uses_kernel`."""
-    run = (f_kernel if uses_kernel(wo, wi, seed, albedo, roughness, eta)
-           else f_plain)
-    return run(seed, albedo, roughness, wo, wi, eta, n_samples, max_depth,
-               thickness)
-
-
-def sample(seed, albedo, roughness, wo, eta=DEFAULT_IOR, max_depth=MAX_DEPTH,
-           thickness=THICKNESS):
-    """A layered BSDF sample, (seed, BSDFSample): `sample_plain`'s, through
-    the kernel where `uses_kernel`."""
-    run = (sample_kernel if uses_kernel(wo, seed, albedo, roughness, eta)
-           else sample_plain)
-    return run(seed, albedo, roughness, wo, eta, max_depth, thickness)

@@ -14,10 +14,9 @@ MIS-weighted, miss -> black, ray tmax = 100, kill threshold |beta| > 1e-5,
 `render_sample` follows autograd (material-table gradients, `diff/`);
 `render_chunk` and `render` run under torch.no_grad(). With
 `use_alpha_cutout` (the default for scenes with cutout texels) closest hits
-and shadow rays go through `integrate/cutout.py`. The `trace_paths`
-options (ray sort, segmented shading, material sort, `debug_pixel`) are
-the reference's, under its conditions; where it branches on the device
-(`lax.cond`), the port branches on the host after one copy a bounce.
+and shadow rays go through `integrate/cutout.py`. Every wavefront is
+shaded one way (`_shade_wave`); the `trace_paths` options (ray sort,
+`debug_pixel`) are the reference's.
 """
 from __future__ import annotations
 
@@ -29,7 +28,6 @@ from ..camera.camera import generate_rays
 from ..core import rng
 from ..core.math import abs_cos_theta, div, dot, length, length_sqr, normalize
 from ..intersect import intersect_any, intersect_closest
-from ..intersect.types import Hit
 from .cutout import (intersect_any_cutout, intersect_closest_cutout,
                      scene_uses_alpha_cutout)
 from .surface import make_surface
@@ -108,24 +106,16 @@ def _bucket_permutation(scene, o, d, alive):
     return _perm_from_key(key, N_BUCKETS)
 
 
-def _index(tree, idx):
-    """Every tensor of a (nested) tuple or NamedTuple of tensors, indexed
-    by `idx` (a permutation or a slice)."""
-    if isinstance(tree, torch.Tensor):
-        return tree[idx]
-    items = [_index(a, idx) for a in tree]
-    return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
-
-
-def _light_query(seed, scene, surf, alive, intersect_method,
-                 use_alpha_cutout):
-    """Pick one light uniformly (`LightMethods.h`) and trace the shadow
-    ray toward it. Returns (seed, None) when the scene has no lights, else
-    (seed, (light colour, squared distance, local light direction, visible,
-    light pick pdf))."""
+@spans.traced(spans.NEE)
+def _nee(seed, scene, surf, beta, alive, intersect_method, active_lobes,
+         use_alpha_cutout=False):
+    """Direct light from one uniformly picked point light
+    (`devicePrograms.cu:444-472`, `LightMethods.h`): pick the light, trace
+    the shadow ray toward it, and weigh the BSDF by its radiance. Returns
+    (seed, contrib)."""
     n_lights = scene.light_pos.shape[0]
     if n_lights == 0:
-        return seed, None
+        return seed, torch.zeros_like(beta)
 
     if n_lights == 1:
         light_idx = torch.zeros(alive.shape[0], dtype=torch.long,
@@ -156,21 +146,9 @@ def _light_query(seed, scene, surf, alive, intersect_method,
         blocked = intersect_any(scene, shadow_o, wl, 0.0, shadow_tmax,
                                 method=intersect_method)
     visible = ~blocked & alive
-    return seed, (lc, length_sqr(to_light), surf.to_local(wl), visible,
-                  p_light)
+    dist2 = length_sqr(to_light)
+    wl_local = surf.to_local(wl)
 
-
-@spans.traced(spans.NEE)
-def _nee(seed, scene, surf, beta, alive, intersect_method, active_lobes,
-         use_alpha_cutout=False):
-    """Direct light from one uniformly picked point light
-    (`devicePrograms.cu:444-472`, `LightMethods.h`). Returns (seed,
-    contrib)."""
-    seed, light = _light_query(seed, scene, surf, alive, intersect_method,
-                               use_alpha_cutout)
-    if light is None:
-        return seed, torch.zeros_like(beta)
-    lc, dist2, wl_local, visible, p_light = light
     seed, f_val = dispatch.f(seed, surf.mat, surf.wo_local, wl_local,
                              active_lobes)
     cos_term = wl_local[..., 2].abs()
@@ -179,21 +157,6 @@ def _nee(seed, scene, surf, beta, alive, intersect_method, active_lobes,
     radiance = lc / torch.clamp(dist2, min=1e-12)[..., None]
     contrib = div(beta * f_val * cos_term[..., None] * radiance, p_light)
     return seed, torch.where(visible[..., None], contrib, 0.0)
-
-
-@spans.traced(spans.NEE)
-def _nee_geom(seed, scene, surf, alive, intersect_method,
-              use_alpha_cutout):
-    """The material-independent half of _nee: light pick, shadow query,
-    local light direction and radiance term. Returns (seed, (wl_local,
-    visible, lrad)), or (seed, None) when the scene has no lights."""
-    seed, light = _light_query(seed, scene, surf, alive, intersect_method,
-                               use_alpha_cutout)
-    if light is None:
-        return seed, None
-    lc, dist2, wl_local, visible, p_light = light
-    lrad = div(lc / torch.clamp(dist2, min=1e-12)[..., None], p_light)
-    return seed, (wl_local, visible, lrad)
 
 
 @spans.traced(spans.ADVANCE)
@@ -217,79 +180,12 @@ def _advance(surf, o, d, beta, alive, bs):
     return beta, o, d, alive
 
 
-def _shade_mat_segment(seed, surf, o, d, beta, alive, nee, gates,
-                       active_lobes):
-    """The material-dependent shading tail for one contiguous segment of a
-    material-sorted wavefront: NEE f and contribution, BSDF sample,
-    throughput and ray update, with per-lobe gates (dispatch._lobes).
-    Returns (seed, radiance_add, beta, o, d, alive)."""
-    radiance_add = torch.zeros_like(beta)
-    if nee is not None:
-        wl_local, visible, lrad = nee
-        seed, f_val = dispatch.f(seed, surf.mat, surf.wo_local, wl_local,
-                                 active_lobes, gates)
-        cos_term = wl_local[..., 2].abs()
-        contrib = beta * f_val * cos_term[..., None] * lrad
-        radiance_add = torch.where(visible[..., None], contrib, 0.0)
-
-    seed, bs = dispatch.sample(seed, surf.mat, surf.wo_local, active_lobes,
-                               gates)
-    return (seed, radiance_add) + _advance(surf, o, d, beta, alive, bs)
-
-
-N_MAT_BUCKETS = 6  # 5 material types + dead lanes
-
-
-@spans.traced(spans.SHADE)
-def _shade_wave_material_sorted(scene, o, d, seed, hit, beta, alive,
-                                radiance, pix, n_seg,
-                                reference_compat, use_textures,
-                                flat_shading, intersect_method,
-                                active_lobes, use_alpha_cutout):
-    """Material-sorted shading: the surface and the NEE shadow query run
-    on the full wavefront, then lanes are sorted by their resolved material
-    type (dead last) and the material-dependent tail (NEE f, BSDF sample)
-    runs per contiguous segment, each lobe only in the segments that hold
-    a live lane of its type. The gates of every segment are copied to the
-    host once. Returns (seed, radiance, beta, o, d, alive, pix), all
-    permuted."""
-    seed, surf = make_surface(seed, scene, o, d, hit,
-                              reference_compat=reference_compat,
-                              use_textures=use_textures,
-                              flat_shading=flat_shading)
-    seed, nee = _nee_geom(seed, scene, surf, alive, intersect_method,
-                          use_alpha_cutout)
-
-    key = torch.where(alive, surf.mat.mat_type.long(), N_MAT_BUCKETS - 1)
-    perm = _perm_from_key(key, N_MAT_BUCKETS)
-    o, d, seed, beta, radiance, alive, pix, surf, nee = _index(
-        (o, d, seed, beta, radiance, alive, pix, surf, nee), perm)
-
-    size = o.shape[0] // n_seg
-    mt = surf.mat.mat_type.reshape(n_seg, size)
-    live = alive.reshape(n_seg, size)
-    gates = torch.stack([((mt == lobe) & live).any(dim=1)
-                         for lobe in active_lobes], dim=1).tolist()
-    pieces = []
-    for si in range(n_seg):
-        sl = slice(si * size, (si + 1) * size)
-        pieces.append(_shade_mat_segment(
-            seed[sl], _index(surf, sl), o[sl], d[sl], beta[sl], alive[sl],
-            None if nee is None else _index(nee, sl),
-            dict(zip(active_lobes, gates[si])), active_lobes))
-    seed, radiance_add, beta, o, d, alive = (
-        torch.cat([p[k] for p in pieces]) for k in range(6))
-    radiance = radiance + radiance_add  # already gated by NEE visibility
-    return seed, radiance, beta, o, d, alive, pix
-
-
 @spans.traced(spans.SHADE)
 def _shade_wave(scene, o, d, seed, hit, beta, alive, radiance,
                 reference_compat, use_textures, flat_shading,
                 intersect_method, active_lobes, use_alpha_cutout):
     """Surface context, NEE, BSDF sample and throughput/ray update for one
-    wavefront (or one segment of it, under compact_shading). Returns
-    (seed, radiance, beta, o, d, alive)."""
+    wavefront. Returns (seed, radiance, beta, o, d, alive)."""
     seed, surf = make_surface(seed, scene, o, d, hit,
                               reference_compat=reference_compat,
                               use_textures=use_textures,
@@ -322,9 +218,7 @@ def trace_paths(scene, o, d, seed, max_bounces: int,
                 use_alpha_cutout: bool = False,
                 debug_pixel: int | None = None,
                 sort_rays: bool | None = None,
-                flat_shading: bool = False,
-                compact_shading: int = 0,
-                material_sort: int = 0):
+                flat_shading: bool = False):
     """Trace one path per lane. o, d: [R, 3]; seed: [R] (int64 holding
     u32). Returns (radiance [R, 3], seed), in the lanes' order.
 
@@ -333,18 +227,8 @@ def trace_paths(scene, o, d, seed, max_bounces: int,
     sort_rays: re-sort the wavefront by coherence before every secondary
     bounce: True by N_BUCKETS buckets (origin cell x direction octant),
     "morton" by the Morton key. Per-lane arithmetic does not depend on the
-    order, so the image is the unsorted one.
-    compact_shading: shade every secondary bounce in this many contiguous
-    segments, skipping those with no live lane; implies sort_rays (dead
-    lanes last); only where it divides the wavefront.
-    material_sort: sort each bounce's lanes by resolved material type and
-    run the material-dependent shading in this many segments with per-lobe
-    gates (_shade_wave_material_sorted); only where it divides the
-    wavefront. Unbiased, but not the unsorted image: skipped lobes burn no
-    random numbers."""
+    order, so the image is the unsorted one."""
     r = o.shape[0]
-    if compact_shading and not sort_rays:
-        sort_rays = True  # segments only pay off with dead lanes last
     radiance = torch.zeros((r, 3), device=o.device)
     beta = torch.ones((r, 3), device=o.device)
     alive = torch.ones((r,), dtype=torch.bool, device=o.device)
@@ -358,8 +242,8 @@ def trace_paths(scene, o, d, seed, max_bounces: int,
                         _coherence_sort_key(scene, o, d, alive), stable=True)
                 else:
                     perm = _bucket_permutation(scene, o, d, alive)
-                o, d, seed, beta, radiance, alive, pix = _index(
-                    (o, d, seed, beta, radiance, alive, pix), perm)
+                o, d, seed, beta, radiance, alive, pix = (
+                    x[perm] for x in (o, d, seed, beta, radiance, alive, pix))
             # Dead lanes trace with tmax = -1: they cannot hit anything, and
             # the dense kernels skip them.
             ray_tmax = (torch.where(alive, RAY_TMAX, -1.0) if bounce
@@ -386,41 +270,12 @@ def trace_paths(scene, o, d, seed, max_bounces: int,
                 _debug_print(bounce, surf, alive, debug_pixel)
 
             # the NEE shadow query inherits the bounce hint too
-            shade_args = (reference_compat, use_textures, flat_shading,
-                          closest_method, active_lobes, use_alpha_cutout)
-            if material_sort and debug_pixel is None \
-                    and r % material_sort == 0:
-                (seed, radiance, beta, o, d, alive,
-                 pix) = _shade_wave_material_sorted(
-                    scene, o, d, seed, hit, beta, alive, radiance, pix,
-                    material_sort, *shade_args)
-            elif compact_shading and bounce and debug_pixel is None \
-                    and r % compact_shading == 0:
-                # dead lanes sort last, so trailing segments skip the whole
-                # shading stage; one copy to the host for every segment
-                size = r // compact_shading
-                pieces = []
-                live = alive.reshape(compact_shading,
-                                     size).any(dim=1).tolist()
-                for si, any_live in enumerate(live):
-                    sl = slice(si * size, (si + 1) * size)
-                    carry = (seed[sl], radiance[sl], beta[sl], o[sl], d[sl],
-                             alive[sl])
-                    if any_live:
-                        carry = _shade_wave(
-                            scene, o[sl], d[sl], seed[sl],
-                            Hit(*[f[sl] for f in hit]), beta[sl], alive[sl],
-                            radiance[sl], *shade_args)
-                    pieces.append(carry)
-                seed, radiance, beta, o, d, alive = (
-                    torch.cat([p[k] for p in pieces]) for k in range(6))
-            else:
-                seed, radiance, beta, o, d, alive = _shade_wave(
-                    scene, o, d, seed, hit, beta, alive, radiance, *shade_args)
+            seed, radiance, beta, o, d, alive = _shade_wave(
+                scene, o, d, seed, hit, beta, alive, radiance,
+                reference_compat, use_textures, flat_shading, closest_method,
+                active_lobes, use_alpha_cutout)
 
-    sorted_any = ((sort_rays and max_bounces > 1)
-                  or (material_sort and r % material_sort == 0))
-    if sorted_any and debug_pixel is None:
+    if sort_rays and max_bounces > 1 and debug_pixel is None:
         # back to pixel order (pix is a permutation)
         radiance = torch.zeros_like(radiance).index_copy(0, pix, radiance)
         seed = torch.zeros_like(seed).index_copy(0, pix, seed)
@@ -438,8 +293,6 @@ def render_sample(scene, cam_position, cam_inv_view, cam_inv_proj,
                   debug_pixel: int | None = None,
                   sort_rays: bool | None = None,
                   flat_shading: bool = False,
-                  compact_shading: int = 0,
-                  material_sort: int = 0,
                   y0=0, h_local: int | None = None):
     """Render one 1-spp frame: [H, W, 3] linear radiance (row 0 = bottom,
     GL convention like the reference framebuffer). With `h_local`, only
@@ -465,7 +318,7 @@ def render_sample(scene, cam_position, cam_inv_view, cam_inv_proj,
                               seed, max_bounces, intersect_method,
                               reference_compat, active_lobes, use_textures,
                               use_alpha_cutout, debug_pixel, sort_rays,
-                              flat_shading, compact_shading, material_sort)
+                              flat_shading)
     return radiance.reshape(h_local, width, 3)
 
 
@@ -478,7 +331,7 @@ def render_chunk(scene, cam_position, cam_inv_view, cam_inv_proj,
                  active_lobes=dispatch.ALL_LOBES, use_textures: bool = True,
                  use_alpha_cutout: bool = False,
                  sort_rays: bool | None = None, flat_shading: bool = False,
-                 material_sort: int = 0, y0=0):
+                 y0=0):
     """Accumulate `chunk` consecutive 1-spp frames into the running mean,
     with the reference's recurrence acc + (frame - acc) / (s + 1). The
     accumulator may hold only the rows [y0, y0 + accum rows) of the
@@ -489,8 +342,8 @@ def render_chunk(scene, cam_position, cam_inv_view, cam_inv_proj,
                 scene, cam_position, cam_inv_view, cam_inv_proj, width,
                 height, s, max_bounces, intersect_method, reference_compat,
                 active_lobes, use_textures, use_alpha_cutout,
-                sort_rays=sort_rays, flat_shading=flat_shading,
-                material_sort=material_sort, y0=y0, h_local=accum.shape[0])
+                sort_rays=sort_rays, flat_shading=flat_shading, y0=y0,
+                h_local=accum.shape[0])
             count = torch.tensor(s, dtype=torch.float32, device=accum.device)
             accum = accum + (frame - accum) / (count + 1.0)
     return accum

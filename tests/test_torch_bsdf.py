@@ -108,12 +108,3 @@ def test_resolve_stochastic_lobe_and_unported_lobes(inputs):
                                   np.asarray(jseed))
     np.testing.assert_array_equal(tr.mat_type.numpy(),
                                   np.asarray(jr.mat_type))
-    # every lobe is ported, and so are the material-sort gates: a lobe
-    # gated off contributes nothing and leaves the seed as it was
-    rm = tr._replace(mat_type=torch.zeros_like(tr.mat_type))
-    off = dict.fromkeys(dispatch.ALL_LOBES, False)
-    gseed, gf = dispatch.f(_t(x["seed"]), rm, _t(x["wo"]), _t(x["wi"]),
-                           gates=off)
-    assert torch.equal(gseed, _t(x["seed"])) and not gf.any()
-    gseed, gs = dispatch.sample(_t(x["seed"]), rm, _t(x["wo"]), gates=off)
-    assert torch.equal(gseed, _t(x["seed"])) and not gs.valid.any()

@@ -15,6 +15,7 @@ import torch
 
 from optixpathtracer_tpu_torch.bsdf import dispatch
 from optixpathtracer_tpu_torch.bsdf import glossy_diffuse as gd
+from optixpathtracer_tpu_torch.bsdf import kernels as bk
 from optixpathtracer_tpu_torch.camera import Camera
 from optixpathtracer_tpu_torch.camera.camera import generate_rays
 from optixpathtracer_tpu_torch.diff import param_gradients
@@ -23,7 +24,7 @@ from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
 from optixpathtracer_tpu_torch.intersect import packet_kernels as pk
 from optixpathtracer_tpu_torch.intersect import walk_kernels as wk
 from optixpathtracer_tpu_torch.scene import (Material, Model, PointLight,
-                                             flatten_model, procedural)
+                                             flatten_model)
 from optixpathtracer_tpu_torch.scene.procedural import (PRESETS, quad,
                                                         scene_material_test,
                                                         uv_sphere)
@@ -41,24 +42,20 @@ def cuda():
 
 @contextlib.contextmanager
 def plain_bsdf():
-    """Route the CUDA path of the BSDF dispatch and of the layered lobe to
-    the plain versions."""
-    saved = (dispatch.f_kernel, dispatch.sample_kernel, gd.f_kernel,
-             gd.sample_kernel)
+    """Route the CUDA path of the BSDF dispatch to the plain dispatch."""
+    saved = (dispatch.f_kernel, dispatch.sample_kernel)
     dispatch.f_kernel = dispatch.f_plain
     dispatch.sample_kernel = dispatch.sample_plain
-    gd.f_kernel, gd.sample_kernel = gd.f_plain, gd.sample_plain
     try:
         yield
     finally:
-        (dispatch.f_kernel, dispatch.sample_kernel, gd.f_kernel,
-         gd.sample_kernel) = saved
+        dispatch.f_kernel, dispatch.sample_kernel = saved
 
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the CUDA path of the dense, walk and packet engines, of the
-    BSDF dispatch and of the layered lobe to the plain versions."""
+    """Route the CUDA path of the dense, walk and packet engines and of the
+    BSDF dispatch to the plain versions."""
     saved = (dk.closest_kernel, dk.any_kernel, wk.candidates_kernel,
              wk.closest_kernel, wk.any_kernel, pk.packet_closest_kernel,
              pk.packet_any_kernel)
@@ -828,61 +825,6 @@ def test_cli_kernels_match_plain(cuda, tmp_path):
 # The trace_paths options and the backward pass, through the kernels
 # ---------------------------------------------------------------------------
 
-FOUR_LOBE_CAMERA = dict(position=np.array([0.0, 1.5, 4.0]),
-                        rotation=np.array([12.0, 180.0, 0.0]))
-
-
-def four_lobe_model(pkg, mat_cls, model_cls, light_cls):
-    """tests/test_material_sort.py's scene, from either package's classes:
-    a floor and one sphere of each resolved material type. Returns (model,
-    lights)."""
-    mats = [
-        mat_cls(base_color=np.array([0.7, 0.3, 0.2], np.float32),
-                mat_type="diffuse"),
-        mat_cls(base_color=np.array([0.9, 0.7, 0.4], np.float32),
-                metallic=1.0, roughness=0.3, mat_type="conductor"),
-        mat_cls(base_color=np.ones(3, np.float32), roughness=0.0,
-                mat_type="dielectric"),
-        mat_cls(base_color=np.array([0.2, 0.4, 0.7], np.float32),
-                roughness=0.2, mat_type="glossy_diffuse"),
-    ]
-    meshes = [pkg.quad((-4, 0, -4), (0, 0, 8), (8, 0, 0),
-                       mat_cls(base_color=np.full(3, 0.6, np.float32),
-                               mat_type="diffuse"), "floor")]
-    for i, m in enumerate(mats):
-        meshes.append(pkg.uv_sphere(0.5, (i * 1.4 - 2.1, 0.6, 0.0), 8, 16, m,
-                                    name=f"s{i}"))
-    return (model_cls(meshes=meshes),
-            [light_cls(np.array([0.0, 5.0, 2.0]), np.full(3, 30.0))])
-
-
-def _launches():
-    return sum(w.launches for w in (
-        dk.closest_kernel, dk.any_kernel, wk.candidates_kernel,
-        wk.closest_kernel, wk.any_kernel, pk.packet_closest_kernel,
-        pk.packet_any_kernel))
-
-
-def test_material_sort_render_kernels_match_plain(cuda):
-    """A material-sorted frame of the four-lobe scene through the kernels
-    equals the plain versions' by the engine-golden criterion."""
-    scene = flatten_model(*four_lobe_model(procedural, Material, Model,
-                                           PointLight), device=cuda)
-    params = Camera(**FOUR_LOBE_CAMERA).raygen_params(64, 64, cuda)
-    kw = dict(active_lobes=dispatch.ALL_LOBES, use_textures=False,
-              material_sort=4)
-    before = _launches()
-    img = path.render_sample(scene, *params, 64, 64, 0, 2, **kw)
-    assert _launches() > before
-    with plain_kernels():
-        want = path.render_sample(scene, *params, 64, 64, 0, 2, **kw)
-    img, want = img.cpu().numpy(), want.cpu().numpy()
-    assert np.isfinite(img).all() and (img >= 0).all() and img.mean() > 0.005
-    close = np.isclose(img, want, atol=1e-5, rtol=1e-4).all(axis=-1)
-    assert close.mean() > 0.995
-    np.testing.assert_allclose(img.mean(), want.mean(), rtol=1e-3)
-
-
 def test_layered_gradients_kernels_equal_plain(cuda):
     """Material-table gradients of the layered scene (34 walk chunks) at
     32x32 through the walk kernels equal the plain versions' bit for bit:
@@ -908,8 +850,7 @@ def diffuse_scene(cuda):
     return flatten_model(model, lights, device=cuda), camera
 
 
-@pytest.mark.parametrize("kw", [{"sort_rays": True}, {"sort_rays": "morton"},
-                                {"compact_shading": 4}])
+@pytest.mark.parametrize("kw", [{"sort_rays": True}, {"sort_rays": "morton"}])
 def test_sorted_frames_equal_unsorted(diffuse_scene, kw):
     """`diffuse` (149 walk chunks) at 64x64, 3 bounces: sorting the
     wavefront changes no lane's arithmetic and no hit, so the frame is the
@@ -979,26 +920,33 @@ def _assert_bits_equal(got, want, what):
     {"n_samples": 2, "max_depth": 12, "thickness": 0.0},
 ])
 def test_layered_lobe_kernels_equal_plain(cuda, kw):
-    """f and sample through the kernels equal the plain lobe bit for bit on
-    2^20 lanes: rgb and the unchanged seed; seed, color, direction, pdf and
-    every flag. The defaults, more walks than a block's 8 warps with a
-    shorter walk, and a thin layer with a longer one."""
+    """The dispatch's launchers of the layered lobe's kernels, on 2^20
+    lanes all of that type, equal the plain lobe bit for bit: the f
+    kernel's rgb (the plain lobe's seed unchanged); the sample kernel's
+    seed, color, direction, pdf and every flag. The defaults, more walks
+    than a block's 8 warps with a shorter walk, and a thin layer with a
+    longer one."""
     x = _layered_inputs(cuda, 15 + len(kw))
     f_args = (x["seed"], x["albedo"], x["roughness"], x["wo"], x["wi"],
               x["eta"])
     f_kw = {"n_samples": gd.N_SAMPLES, "max_depth": gd.MAX_DEPTH,
             "thickness": gd.THICKNESS, **kw}
     s_kw = {k: v for k, v in f_kw.items() if k != "n_samples"}
-    launches = gd.f_kernel.launches, gd.sample_kernel.launches
+    layered = torch.full(x["eta"].shape, dispatch.GLOSSY_DIFFUSE,
+                         dtype=torch.int32, device=cuda)
+    draws = [0, 0, 0, gd.sample_draws(s_kw["max_depth"])]
+    launches = bk.layered_f.launches, bk.lobes_sample.launches
     with torch.no_grad():
-        seed_k, f_k = gd.f(*f_args, **f_kw)
-        seed_p, f_p = gd.f_plain(*f_args, **f_kw)
-        sk = gd.sample(*f_args[:4], x["eta"], **s_kw)
-        sp = gd.sample_plain(*f_args[:4], x["eta"], **s_kw)
+        f_k = bk.layered_f(x["seed"], layered, *f_args[1:], **f_kw)
+        seed_p, f_p = gd.f(*f_args, **f_kw)
+        sk = bk.lobes_sample(x["seed"], layered, *f_args[1:4], x["eta"],
+                             dispatch.lobe_mask((dispatch.GLOSSY_DIFFUSE,)),
+                             draws, **s_kw)
+        sp = gd.sample(*f_args[:4], x["eta"], **s_kw)
     torch.cuda.synchronize()
-    assert (gd.f_kernel.launches, gd.sample_kernel.launches) == (
+    assert (bk.layered_f.launches, bk.lobes_sample.launches) == (
         launches[0] + 1, launches[1] + 1)
-    assert seed_k is x["seed"] and torch.equal(seed_p, x["seed"])
+    assert torch.equal(seed_p, x["seed"])
     _assert_bits_equal(f_k, f_p, "f rgb")
     assert (f_k > 0).any(dim=1).float().mean() > 0.2
     _assert_bits_equal(sk[0], sp[0], "sample seed")
@@ -1013,21 +961,28 @@ def test_layered_lobe_kernels_equal_plain(cuda, kw):
 
 def test_layered_lobe_kernel_launch_errors_raise(cuda):
     x = _layered_inputs(cuda, 3)
+    layered = torch.full(x["eta"].shape, dispatch.GLOSSY_DIFFUSE,
+                         dtype=torch.int32, device=cuda)
+    mask = dispatch.lobe_mask((dispatch.GLOSSY_DIFFUSE,))
+    draws = [0, 0, 0, gd.sample_draws()]
     with pytest.raises(ValueError):
-        gd.f_kernel(x["seed"].int(), x["albedo"], x["roughness"], x["wo"],
-                    x["wi"], x["eta"])
+        bk.layered_f(x["seed"].int(), layered, x["albedo"], x["roughness"],
+                     x["wo"], x["wi"], x["eta"])
     with pytest.raises(ValueError):
-        gd.sample_kernel(x["seed"], x["albedo"].cpu(), x["roughness"],
-                         x["wo"], x["eta"])
+        bk.lobes_sample(x["seed"], layered, x["albedo"].cpu(),
+                        x["roughness"], x["wo"], x["eta"], mask, draws)
     with pytest.raises(ValueError):
-        gd.f_kernel(x["seed"], x["albedo"], x["roughness"], x["wo"],
-                    x["wi"], x["eta"], n_samples=0)
+        bk.layered_f(x["seed"], layered, x["albedo"], x["roughness"],
+                     x["wo"], x["wi"], x["eta"], n_samples=0)
+    with pytest.raises(ValueError):
+        bk.layered_f(x["seed"], layered.long(), x["albedo"], x["roughness"],
+                     x["wo"], x["wi"], x["eta"])
 
 
 def _lobe_launches():
     """Launches of the layered f, closed-form f and sample kernels."""
-    return (gd.f_kernel.launches, gd.lobes_f_kernel.launches,
-            gd.lobes_sample_kernel.launches)
+    return (bk.layered_f.launches, bk.lobes_f.launches,
+            bk.lobes_sample.launches)
 
 
 def _launched(before):
@@ -1100,35 +1055,33 @@ def _assert_outputs_equal(got, want, what):
                            f"{what} {field}")
 
 
-@pytest.mark.parametrize("lobes,gated_off", [
-    ((dispatch.DIFFUSE,), None),
-    ((dispatch.GLOSSY_DIFFUSE,), None),
-    (dispatch.ALL_LOBES, None),
-    (dispatch.ALL_LOBES, dispatch.CONDUCTOR),
-    (dispatch.ALL_LOBES, dispatch.GLOSSY_DIFFUSE),
+@pytest.mark.parametrize("lobes", [
+    (dispatch.DIFFUSE,),
+    (dispatch.GLOSSY_DIFFUSE,),
+    dispatch.ALL_LOBES,
+    (dispatch.DIFFUSE, dispatch.DIELECTRIC, dispatch.GLOSSY_DIFFUSE),
+    (dispatch.DIFFUSE, dispatch.CONDUCTOR, dispatch.DIELECTRIC),
 ])
-def test_dispatch_kernels_equal_plain(cuda, lobes, gated_off):
+def test_dispatch_kernels_equal_plain(cuda, lobes):
     """dispatch.f and sample through the kernels equal the plain dispatch
     bit for bit on 2^20 lanes of every resolved type (`_dispatch_inputs`):
     rgb and the unchanged seed; seed, color, direction, pdf and every
-    flag. Active lobes (0,), (3,) and all four, and all four with one
-    gated off. Only the kernels of the lobes asked for launch: the layered
-    f kernel for the layered lobe, the closed-form one for the others (or
-    where no lobe is asked for), one sample kernel."""
+    flag. Active lobes (0,), (3,), all four, and all four but one. Only
+    the kernels of the lobes asked for launch: the layered f kernel for
+    the layered lobe, the closed-form one for the others (or where no lobe
+    is asked for), one sample kernel."""
     seed, mat, wo, wi = _dispatch_inputs(cuda, 40 + len(lobes))
-    gates = (None if gated_off is None
-             else {lobe: lobe != gated_off for lobe in lobes})
-    on = [lobe for lobe in lobes if lobe != gated_off]
+    on = list(lobes)
     layered = dispatch.GLOSSY_DIFFUSE in on
     closed = any(lobe != dispatch.GLOSSY_DIFFUSE for lobe in on)
     before = _lobe_launches()
     with torch.no_grad():
-        got_f = dispatch.f(seed, mat, wo, wi, lobes, gates)
-        got_s = dispatch.sample(seed, mat, wo, lobes, gates)
+        got_f = dispatch.f(seed, mat, wo, wi, lobes)
+        got_s = dispatch.sample(seed, mat, wo, lobes)
         assert _launched(before) == (layered, closed or not layered, 1)
         with plain_bsdf():
-            want_f = dispatch.f(seed, mat, wo, wi, lobes, gates)
-            want_s = dispatch.sample(seed, mat, wo, lobes, gates)
+            want_f = dispatch.f(seed, mat, wo, wi, lobes)
+            want_s = dispatch.sample(seed, mat, wo, lobes)
     torch.cuda.synchronize()
     assert got_f[0] is seed and want_f[0] is seed
     _assert_outputs_equal(got_f, want_f, "f")

@@ -32,7 +32,7 @@ from optixpathtracer_tpu.bsdf import glossy_diffuse as jglossy
 from optixpathtracer_tpu.core import fresnel as jfresnel
 from optixpathtracer_tpu.core import rng as jrng
 from optixpathtracer_tpu_torch.bsdf import (conductor, dielectric, diffuse,
-                                            dispatch, glossy_diffuse)
+                                            dispatch, glossy_diffuse, kernels)
 from optixpathtracer_tpu_torch.core import fresnel, rng
 from optixpathtracer_tpu_torch.core.math import abs_cos_theta, normalize
 
@@ -266,13 +266,6 @@ def test_dispatch_mixed_lanes(inputs):
     assert_close(p_err[~layered], np.asarray(jp_err)[~layered], "pdf error")
     with pytest.raises(ValueError):
         dispatch.pdf(tm, _t(wo), _t(wi), layered="bogus")
-    # every gate on is the ungated dispatch, bit for bit
-    on = dict.fromkeys(dispatch.ALL_LOBES, True)
-    gseed_f, gf = dispatch.f(_t(seed), tm, _t(wo), _t(wi), gates=on)
-    assert torch.equal(gseed_f, tseed_f) and torch.equal(gf, tf)
-    gseed_s, gs = dispatch.sample(_t(seed), tm, _t(wo), gates=on)
-    assert torch.equal(gseed_s, tseed_s)
-    assert all(torch.equal(a, b) for a, b in zip(gs, ts))
 
 
 # ---------------------------------------------------------------------------
@@ -411,46 +404,40 @@ def test_glossy_diffuse_f_properties():
     np.testing.assert_allclose(f_up.numpy(), f_dn.numpy(), atol=1e-6)
 
 
-def test_glossy_diffuse_kernel_routing(monkeypatch):
-    """The layered lobe takes its CUDA kernels only for CUDA inputs that
-    autograd does not record: never on the CPU; with the device check made
-    to answer CUDA, not while grad mode is on and an input requires grad,
-    and otherwise yes. f and sample follow the predicate."""
+def test_glossy_diffuse_kernel_routing(inputs, monkeypatch):
+    """The BSDF takes its CUDA kernels only for CUDA inputs that autograd
+    does not record, as `dispatch.uses_kernel` alone decides: never on the
+    CPU; with the device check made to answer CUDA, not while grad mode is
+    on and an input requires grad, and otherwise yes."""
     n = 8
-    wo = normalize(torch.tensor([0.3, 0.1, 0.9])).expand(n, 3)
-    rough = _const(n, 0.4).requires_grad_()
-    args = (torch.arange(n), torch.full((n, 3), 0.7), rough, wo)
-    assert not glossy_diffuse.uses_kernel(wo, wo, *args[:3], 1.5)
+    mat = _mats(inputs, dispatch, _t, n)
+    seed, wo, wi = (_t(inputs[k][:n]) for k in ("seed", "wo", "wi"))
+    grad_mat = mat._replace(roughness=mat.roughness.clone().requires_grad_())
+    assert not dispatch.uses_kernel(seed, grad_mat, wo, wi)
     with torch.no_grad():
-        assert not glossy_diffuse.uses_kernel(wo, *args[:3], 1.5)
+        assert not dispatch.uses_kernel(seed, mat, wo)
 
-    monkeypatch.setattr(glossy_diffuse, "_on_cuda", lambda x: True)
-    assert not glossy_diffuse.uses_kernel(wo, wo, *args[:3], 1.5)
-    assert glossy_diffuse.uses_kernel(wo, wo, *args[:2], rough.detach(), 1.5)
+    monkeypatch.setattr(dispatch, "_on_cuda", lambda x: True)
+    assert not dispatch.uses_kernel(seed, grad_mat, wo, wi)
+    assert dispatch.uses_kernel(seed, mat, wo, wi)
+    assert dispatch.uses_kernel(seed, mat, wo)
     with torch.no_grad():
-        assert glossy_diffuse.uses_kernel(wo, wo, *args[:3], 1.5)
+        assert dispatch.uses_kernel(seed, grad_mat, wo, wi)
     with torch.enable_grad():
-        assert not glossy_diffuse.uses_kernel(wo, *args[:3], _const(n, 1.5))
-
-    calls = []
-    monkeypatch.setattr(glossy_diffuse, "f_kernel",
-                        lambda *a: calls.append("f") or (a[0], None))
-    monkeypatch.setattr(glossy_diffuse, "sample_kernel",
-                        lambda *a: calls.append("sample") or (a[0], None))
-    glossy_diffuse.f(*args, wo)
-    glossy_diffuse.sample(*args)
-    assert calls == []  # rough requires grad: the plain versions ran
-    with torch.no_grad():
-        glossy_diffuse.f(*args, wo)
-        glossy_diffuse.sample(*args)
-    assert calls == ["f", "sample"]
+        for field in ("albedo", "roughness", "ior"):
+            leaf = getattr(mat, field).clone().requires_grad_()
+            assert not dispatch.uses_kernel(
+                seed, mat._replace(**{field: leaf}), wo), field
+        assert not dispatch.uses_kernel(seed, mat, wo.clone()
+                                        .requires_grad_())
+        assert not dispatch.uses_kernel(seed, mat, wo, wi.clone()
+                                        .requires_grad_())
 
 
 def test_dispatch_kernel_routing(inputs, monkeypatch):
-    """The dispatch takes its kernels only where the layered lobe would
-    (`glossy_diffuse.uses_kernel`): never on the CPU, not while grad mode
-    is on and an input requires grad; and hands them the active lobes less
-    those gated off."""
+    """`dispatch.f` and `sample` take their kernels only where
+    `dispatch.uses_kernel` holds: never on the CPU, not while grad mode is
+    on and an input requires grad; and hand them the active lobes."""
     n = 16
     mat = _mats(inputs, dispatch, _t, n)
     seed, wo, wi = (_t(inputs[k][:n]) for k in ("seed", "wo", "wi"))
@@ -466,21 +453,59 @@ def test_dispatch_kernel_routing(inputs, monkeypatch):
 
     run(mat)
     assert calls == []  # the CPU: the plain dispatch ran
-    monkeypatch.setattr(glossy_diffuse, "_on_cuda", lambda x: True)
+    monkeypatch.setattr(dispatch, "_on_cuda", lambda x: True)
     grad_mat = mat._replace(albedo=mat.albedo.clone().requires_grad_())
     run(grad_mat)
     assert calls == []  # autograd records the albedo
     with torch.no_grad():
         run(grad_mat)
     run(mat, active_lobes=(dispatch.DIFFUSE, dispatch.GLOSSY_DIFFUSE))
-    run(mat, gates={dispatch.DIFFUSE: True, dispatch.CONDUCTOR: False,
-                    dispatch.DIELECTRIC: True,
-                    dispatch.GLOSSY_DIFFUSE: True})
     every, two = dispatch.ALL_LOBES, (dispatch.DIFFUSE,
                                       dispatch.GLOSSY_DIFFUSE)
-    gated = (dispatch.DIFFUSE, dispatch.DIELECTRIC, dispatch.GLOSSY_DIFFUSE)
     assert calls == [("f", every), ("sample", every), ("f", two),
-                     ("sample", two), ("f", gated), ("sample", gated)]
+                     ("sample", two)]
+
+
+def _tensors(out):
+    """The tensors of a (seed, rgb) or (seed, BSDFSample)."""
+    seed, rest = out
+    return [seed] + ([rest] if isinstance(rest, torch.Tensor) else list(rest))
+
+
+PLAIN_CALLS = {
+    "dispatch.f_plain": lambda seed, mat, wo, wi: dispatch.f_plain(
+        seed, mat, wo, wi, dispatch.ALL_LOBES),
+    "dispatch.sample_plain": lambda seed, mat, wo, wi: dispatch.sample_plain(
+        seed, mat, wo, dispatch.ALL_LOBES),
+    "glossy_diffuse.f": lambda seed, mat, wo, wi: glossy_diffuse.f(
+        seed, mat.albedo, mat.roughness, wo, wi, eta=mat.ior),
+    "glossy_diffuse.sample": lambda seed, mat, wo, wi: glossy_diffuse.sample(
+        seed, mat.albedo, mat.roughness, wo, eta=mat.ior),
+}
+
+
+@pytest.mark.parametrize("call", list(PLAIN_CALLS))
+def test_plain_bsdf_launches_no_kernel(inputs, monkeypatch, call):
+    """Only `dispatch.f` and `sample` choose the kernels: with the device
+    check made to answer CUDA and no grad, where they would launch, the
+    plain dispatch and the layered lobe launch no kernel and give what
+    they give on the CPU, bit for bit."""
+    n = 64
+    mat = _mats(inputs, dispatch, _t, n)
+    seed, wo, wi = (_t(inputs[k][:n]) for k in ("seed", "wo", "wi"))
+    run = PLAIN_CALLS[call]
+    with torch.no_grad():
+        want = run(seed, mat, wo, wi)
+    launched = []
+    monkeypatch.setattr(dispatch, "_on_cuda", lambda x: True)
+    monkeypatch.setattr(kernels, "_launch",
+                        lambda name, *a, **k: launched.append(name))
+    with torch.no_grad():
+        assert dispatch.uses_kernel(seed, mat, wo, wi)
+        got = run(seed, mat, wo, wi)
+    assert launched == []
+    got, want = _tensors(got), _tensors(want)
+    assert len(got) == len(want) and all(map(torch.equal, got, want))
 
 
 def _lcg_steps(seed, advanced, most=64):
@@ -515,7 +540,7 @@ def test_layered_sample_draw_count(inputs, max_depth):
     n = 64
     x = {k: _t(inputs[k][:n]) for k in ("seed", "albedo", "rough", "wo",
                                          "ior")}
-    advanced, _ = glossy_diffuse.sample_plain(
+    advanced, _ = glossy_diffuse.sample(
         x["seed"], x["albedo"], x["rough"], x["wo"], x["ior"],
         max_depth=max_depth)
     assert _lcg_steps(x["seed"], advanced) == glossy_diffuse.sample_draws(

@@ -1,15 +1,12 @@
 """The `trace_paths` options of the port against the JAX package's: the
-coherence permutations lane for lane, `sort_rays` and `compact_shading`
-frames, `material_sort` frames, the runtime lobe gates, `render_chunk`
-with options and the `debug_pixel` lines.
+coherence permutations lane for lane, `sort_rays` frames, the dispatch
+over subsets of the lobes, `render_chunk` with options and the
+`debug_pixel` lines.
 
 The reference runs op by op (`jax.disable_jit()`, see
 tests/test_torch_render.py). Sorting the wavefront changes no lane's
 arithmetic and no closest hit, so sorted frames must equal the port's own
-unsorted frame bit for bit. Material-sorted frames are not the unsorted
-ones (a lobe skipped in a segment burns no random numbers), so they are
-held to the reference's material-sorted frame of the same segment count,
-by the engine-golden criterion of tests/test_torch_render.py."""
+unsorted frame bit for bit."""
 import dataclasses
 import re
 
@@ -22,23 +19,14 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from optixpathtracer_tpu.bsdf import dispatch as jdispatch
-from optixpathtracer_tpu.camera import Camera as JCamera
 from optixpathtracer_tpu.integrate import path as jpath
-from optixpathtracer_tpu.scene import Material as JMaterial
-from optixpathtracer_tpu.scene import Model as JModel
-from optixpathtracer_tpu.scene import PointLight as JPointLight
 from optixpathtracer_tpu.scene import flatten_model as jflatten
-from optixpathtracer_tpu.scene import procedural as jprocedural
 from optixpathtracer_tpu.scene.procedural import PRESETS as JPRESETS
 from optixpathtracer_tpu_torch.bsdf import dispatch
-from optixpathtracer_tpu_torch.camera import Camera
 from optixpathtracer_tpu_torch.integrate import path
-from optixpathtracer_tpu_torch.scene import (Material, Model, PointLight,
-                                             flatten_model, procedural)
-from optixpathtracer_tpu_torch.scene.flatten import scene_active_lobes
+from optixpathtracer_tpu_torch.scene import flatten_model
 from optixpathtracer_tpu_torch.scene.procedural import PRESETS
 
-from test_torch_cuda import FOUR_LOBE_CAMERA, four_lobe_model
 from test_torch_lobes import _mats, _t
 from test_torch_render import assert_images_match
 
@@ -67,17 +55,6 @@ def cornell():
     return (flatten_model(model, lights, device="cpu"),
             camera.raygen_params(SIZE, SIZE, device="cpu"),
             jflatten(jmodel, jlights), jcamera.raygen_params(SIZE, SIZE))
-
-
-@pytest.fixture(scope="module")
-def four_lobes():
-    scene = flatten_model(*four_lobe_model(procedural, Material, Model,
-                                           PointLight), device="cpu")
-    jscene = jflatten(*four_lobe_model(jprocedural, JMaterial, JModel,
-                                       JPointLight))
-    return (scene, Camera(**FOUR_LOBE_CAMERA).raygen_params(
-        SIZE, SIZE, device="cpu"), jscene,
-        JCamera(**FOUR_LOBE_CAMERA).raygen_params(SIZE, SIZE))
 
 
 # ---------------------------------------------------------------------------
@@ -146,8 +123,7 @@ def test_perm_from_key_is_the_counting_sort(case):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("option,value,bounces", [
-    ("sort_rays", True, 2), ("sort_rays", "morton", 2),
-    ("compact_shading", 2, 3), ("compact_shading", 4, 3)])
+    ("sort_rays", True, 2), ("sort_rays", "morton", 2)])
 def test_sort_options_match_reference_and_unsorted(cornell, option, value,
                                                    bounces):
     scene, params, jscene, jparams = cornell
@@ -159,32 +135,8 @@ def test_sort_options_match_reference_and_unsorted(cornell, option, value,
     assert_images_match(img, _jframe(jscene, jparams, bounces, **kw))
 
 
-@pytest.mark.parametrize("n_seg", [2, 4])
-def test_material_sort_matches_reference(four_lobes, n_seg):
-    scene, params, jscene, jparams = four_lobes
-    lobes = scene_active_lobes(scene)
-    assert lobes == dispatch.ALL_LOBES
-    kw = dict(active_lobes=lobes, use_textures=False, material_sort=n_seg)
-    img = _frame(scene, params, 2, **kw)
-    assert_images_match(img, _jframe(jscene, jparams, 2, **kw))
-    # skipped lobes burn no random numbers: not the unsorted frame
-    unsorted = _frame(scene, params, 2, active_lobes=lobes,
-                      use_textures=False)
-    assert not np.array_equal(img, unsorted)
-
-
-def test_material_sort_needs_a_dividing_segment_count(four_lobes):
-    """256 lanes in 3 segments: the option falls back to unsorted shading,
-    as in the reference."""
-    scene, params, _, _ = four_lobes
-    kw = dict(active_lobes=dispatch.ALL_LOBES, use_textures=False)
-    np.testing.assert_array_equal(_frame(scene, params, 2, material_sort=3,
-                                         **kw),
-                                  _frame(scene, params, 2, **kw))
-
-
 # ---------------------------------------------------------------------------
-# Gates
+# Subsets of the lobes
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -208,23 +160,23 @@ def lanes():
                                  (dispatch.DIFFUSE, dispatch.DIELECTRIC),
                                  dispatch.ALL_LOBES])
 def test_gates_match_reference(lanes, off):
-    """f and sample under gates against the reference's `_gated`: a lobe
-    gated off gives zeros (an invalid sample) and leaves the seed as it
-    was; in f only the layered lobe hands its seed on. All gates on is the
-    ungated dispatch, bit for bit."""
+    """f and sample with the lobes of `off` left out of `active_lobes`,
+    against the reference's dispatch with the same `active_lobes`: a lane
+    of an absent lobe gets zeros (an invalid sample), an absent lobe draws
+    nothing, and in f only the layered lobe hands its seed on. Every lobe
+    is the default, bit for bit."""
     x = lanes
-    gates = {lobe: lobe not in off for lobe in dispatch.ALL_LOBES}
-    jgates = {lobe: jnp.asarray(v) for lobe, v in gates.items()}
+    lobes = tuple(lobe for lobe in dispatch.ALL_LOBES if lobe not in off)
     n = len(x["rough"])
     tm, jm = _mats(x, dispatch, _t, n), _mats(x, jdispatch, jnp.asarray, n)
     seed = _t(x["seed"])
-    tseed_f, tf = dispatch.f(seed, tm, _t(x["wo"]), _t(x["wi"]), gates=gates)
-    tseed_s, ts = dispatch.sample(seed, tm, _t(x["wo"]), gates=gates)
+    tseed_f, tf = dispatch.f(seed, tm, _t(x["wo"]), _t(x["wi"]), lobes)
+    tseed_s, ts = dispatch.sample(seed, tm, _t(x["wo"]), lobes)
     with jax.disable_jit():
         jseed_f, jf = jdispatch.f(jnp.asarray(x["seed"]), jm, x["wo"],
-                                  x["wi"], gates=jgates)
+                                  x["wi"], active_lobes=lobes)
         jseed_s, js = jdispatch.sample(jnp.asarray(x["seed"]), jm, x["wo"],
-                                       gates=jgates)
+                                       active_lobes=lobes)
     np.testing.assert_array_equal(tseed_f.numpy().astype(np.uint32),
                                   np.asarray(jseed_f))
     np.testing.assert_array_equal(tseed_s.numpy().astype(np.uint32),
@@ -235,15 +187,15 @@ def test_gates_match_reference(lanes, off):
         np.testing.assert_allclose(getattr(ts, k).numpy(),
                                    np.asarray(getattr(js, k)), rtol=1e-5,
                                    atol=1e-6, err_msg=k)
-    gated = np.isin(x["mat_type"], off)
-    assert not tf[gated].any() and not ts.valid[gated].any()
+    absent = np.isin(x["mat_type"], off)
+    assert not tf[absent].any() and not ts.valid[absent].any()
     if not off:
-        ungated_f = dispatch.f(seed, tm, _t(x["wo"]), _t(x["wi"]))
-        ungated_s = dispatch.sample(seed, tm, _t(x["wo"]))
-        assert torch.equal(ungated_f[0], tseed_f)
-        assert torch.equal(ungated_f[1], tf)
-        assert torch.equal(ungated_s[0], tseed_s)
-        assert all(torch.equal(a, b) for a, b in zip(ungated_s[1], ts))
+        default_f = dispatch.f(seed, tm, _t(x["wo"]), _t(x["wi"]))
+        default_s = dispatch.sample(seed, tm, _t(x["wo"]))
+        assert torch.equal(default_f[0], tseed_f)
+        assert torch.equal(default_f[1], tf)
+        assert torch.equal(default_s[0], tseed_s)
+        assert all(torch.equal(a, b) for a, b in zip(default_s[1], ts))
     if off == dispatch.ALL_LOBES:
         assert torch.equal(tseed_f, seed) and torch.equal(tseed_s, seed)
 
@@ -253,8 +205,8 @@ def test_gates_match_reference(lanes, off):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kw", [{"sort_rays": True},
-                                {"sort_rays": "morton", "material_sort": 4},
-                                {"material_sort": 2}])
+                                {"sort_rays": "morton"},
+                                {"flat_shading": True}])
 def test_render_chunk_with_options_chains_render_sample(cornell, kw):
     scene, params, _, _ = cornell
     accum = torch.zeros((SIZE, SIZE, 3))
