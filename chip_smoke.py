@@ -13,13 +13,18 @@ config4_layered.json; the walk kernels and the glossy-diffuse lobe) and
 `hall` (2 spp, 2 bounces, bench.py's hall_fwd at 1080p: 338,270 textured
 triangles with alpha-cutout foliage, every lobe; its opaque sub-scene's
 1,322 chunks of 256 send primaries and bounce-0 shadow rays to the walk
-kernels and bounce-1 rays to the packet kernels, and every cutout chain
-runs the dense closest kernel over the 40-triangle cutout sub-scene).
+kernels and bounce-1 rays to the packet kernels, and each alpha-cutout
+chain over the 40-triangle cutout sub-scene runs as one kernel,
+cutout_closest or cutout_any).
 
 1. Kernel phase, on the wavefronts of a real trace_paths frame of each cell
    (the 1080p primary wavefront, then each bounce's closest and NEE shadow
-   rays). Dense kernels on Cornell, `diffuse` and hall's cutout chains;
-   walk kernels on `diffuse`, `layered` and hall, and on `diffuse`
+   rays). Dense kernels on Cornell and `diffuse`; the cutout chain
+   kernels on hall's four chains (each bit for bit the plain chain, whose
+   layers are dense sweeps, its re-traced layers equal to the plain
+   count; kernel and plain chain timed, the bound from the needed tests of
+   the plain chain's layers or the bytes; the re-traced layers a frame
+   printed); walk kernels on `diffuse`, `layered` and hall, and on `diffuse`
    re-flattened at 256 triangles a chunk (MAX_WALK_CHUNKS = 100: 75
    chunks) for the primary wavefront; packet kernels on every hall
    wavefront. Each kernel against its plain PyTorch version on the same
@@ -53,8 +58,9 @@ runs the dense closest kernel over the 40-triangle cutout sub-scene).
    whole test. Every walk sweep is timed
    and bounded at every wavefront. Each kernel's row is at the wavefront
    the frame first runs it on: closest and candidates at the primary
-   wavefront (hall's dense closest at its first cutout chain, packet at
-   bounce 1), occlusion at the bounce-0 shadow wavefront, with the other
+   wavefront (hall's chain kernels at the bounce-0 chain of their kind,
+   packet at bounce 1), occlusion at the bounce-0 shadow wavefront, with
+   the other
    wavefronts listed. The BSDF dispatch's three kernels
    (csrc/layered_bsdf.cu, which replace no TPU kernel: the layered lobe's
    f walks, the closed-form lobes' f, and the sample of every lobe) run at
@@ -94,7 +100,7 @@ runs the dense closest kernel over the 40-triangle cutout sub-scene).
    the kernels and once through the plain versions: gradients bit for
    bit. fwd+bwd and forward-only Mrays/s (pixels x frames x bounces x 2 /
    seconds), peak device memory and bytes a lane. Then hall_small at
-   48x48 through "auto" (walk, dense, cutout chains) and "packet":
+   48x48 through "auto" (walk, the cutout chain kernels) and "packet":
    gradients finite, kernels equal plain.
 6. Front-end phase, through the entry points a user calls. The shipped
    flagship config through the CLI (`cli.main(["--config",
@@ -144,7 +150,7 @@ CELLS = (
     ("scene3_cornell", 16, 2),  # bench.py headline scene: dense kernels
     ("diffuse", 4, 3),          # scenes/config1_diffuse.json: walk kernels
     ("layered", 2, 2),          # scenes/config4_layered.json: walk + glossy
-    ("hall", 2, 2),             # bench.py hall_fwd: walk, packet, dense
+    ("hall", 2, 2),             # bench.py hall_fwd: walk, packet, chains
 )
 WALK = ("walk_candidates", "walk_closest", "walk_any")
 BSDF = ("layered_f", "lobes_f", "lobes_sample")
@@ -152,8 +158,8 @@ CELL_KERNELS = {  # the kernels each cell's render must launch
     "scene3_cornell": ("dense_closest", "dense_any"),
     "diffuse": WALK + ("lobes_f", "lobes_sample"),
     "layered": WALK + ("layered_f", "lobes_sample"),
-    # hall's cutout chains are closest-hit queries, so no dense_any
-    "hall": WALK + ("packet_closest", "packet_any", "dense_closest") + BSDF,
+    "hall": WALK + ("packet_closest", "packet_any", "cutout_closest",
+                    "cutout_any") + BSDF,
 }
 BSDF_SCENES = ("diffuse", "layered", "hall")
 DENSE_SCENES = ("scene3_cornell", "diffuse")
@@ -230,15 +236,17 @@ def cuda_time_ms(fn, reps):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route every kernel wrapper (dense, walk, packet and the BSDF
-    dispatch's) to its plain version."""
+    """Route every kernel wrapper (dense, walk, packet, the cutout chains
+    and the BSDF dispatch's) to its plain version."""
     from optixpathtracer_tpu_torch.bsdf import dispatch
+    from optixpathtracer_tpu_torch.integrate import cutout
     from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
     from optixpathtracer_tpu_torch.intersect import packet_kernels as pk
     from optixpathtracer_tpu_torch.intersect import walk_kernels as wk
     saved = (dk.closest_kernel, dk.any_kernel, wk.candidates_kernel,
              wk.closest_kernel, wk.any_kernel, pk.packet_closest_kernel,
-             pk.packet_any_kernel, dispatch.f_kernel, dispatch.sample_kernel)
+             pk.packet_any_kernel, dispatch.f_kernel, dispatch.sample_kernel,
+             cutout.chain_kernel_route)
     dk.closest_kernel = (lambda tris, boxes, n_live, *rays:
                          dk.closest_plain(tris, *rays))
     dk.any_kernel = (lambda tris, boxes, n_live, *rays:
@@ -254,18 +262,20 @@ def plain_kernels():
                                              pk.packet_any_plain)
     dispatch.f_kernel = dispatch.f_plain
     dispatch.sample_kernel = dispatch.sample_plain
+    cutout.chain_kernel_route = lambda *args: False
     try:
         yield
     finally:
         (dk.closest_kernel, dk.any_kernel, wk.candidates_kernel,
          wk.closest_kernel, wk.any_kernel, pk.packet_closest_kernel,
-         pk.packet_any_kernel, dispatch.f_kernel,
-         dispatch.sample_kernel) = saved
+         pk.packet_any_kernel, dispatch.f_kernel, dispatch.sample_kernel,
+         cutout.chain_kernel_route) = saved
 
 
 def kernel_wrappers():
     """{name: wrapper} of every hand-written kernel."""
     from optixpathtracer_tpu_torch.bsdf import kernels as bk
+    from optixpathtracer_tpu_torch.integrate import cutout
     from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
     from optixpathtracer_tpu_torch.intersect import packet_kernels as pk
     from optixpathtracer_tpu_torch.intersect import walk_kernels as wk
@@ -274,18 +284,19 @@ def kernel_wrappers():
             "walk_closest": wk.closest_kernel, "walk_any": wk.any_kernel,
             "packet_closest": pk.packet_closest_kernel,
             "packet_any": pk.packet_any_kernel,
+            "cutout_closest": cutout.closest_chain_kernel,
+            "cutout_any": cutout.any_chain_kernel,
             "layered_f": bk.layered_f, "lobes_f": bk.lobes_f,
             "lobes_sample": bk.lobes_sample}
 
 
 @contextlib.contextmanager
-def recorded_queries(path):
+def recorded_queries(*modules):
     """Record the (kind, scene, o, d, tmin, tmax) of every closest and
-    occlusion query that trace_paths makes, the cutout chains' included."""
-    from optixpathtracer_tpu_torch.integrate import cutout
+    occlusion query that the modules' code makes through their names for
+    the queries."""
     calls = []
-    saved = [(m, m.intersect_closest, m.intersect_any)
-             for m in (path, cutout)]
+    saved = [(m, m.intersect_closest, m.intersect_any) for m in modules]
 
     def recording(kind, query):
         def run(scene, o, d, tmin, tmax, method):
@@ -364,15 +375,48 @@ def scene_flags(scene):
             "flat_shading": scene_flat_shading(scene)}
 
 
+@contextlib.contextmanager
+def recorded_chains():
+    """Record {"closest": [...], "any": [...]}: the inputs (sub-scene, o,
+    d, tmin, tmax and, for "any", the gate) and re-traced layers of every
+    cutout chain kernel call. A wrapper counts on the module's name for
+    it, so a recorder carries the counters while it stands in."""
+    from optixpathtracer_tpu_torch.integrate import cutout
+    calls = {"closest": [], "any": []}
+    saved = {"closest": cutout.closest_chain_kernel,
+             "any": cutout.any_chain_kernel}
+
+    def recording(kind, fn):
+        def run(*args):
+            out = fn(*args)
+            calls[kind].append((args, int(run.last_reentries)))
+            return out
+        run.launches, run.last_reentries = fn.launches, fn.last_reentries
+        return run
+
+    stand_ins = {k: recording(k, fn) for k, fn in saved.items()}
+    cutout.closest_chain_kernel = stand_ins["closest"]
+    cutout.any_chain_kernel = stand_ins["any"]
+    try:
+        yield calls
+    finally:
+        for k, fn in saved.items():
+            fn.launches = stand_ins[k].launches
+            fn.last_reentries = stand_ins[k].last_reentries
+        cutout.closest_chain_kernel = saved["closest"]
+        cutout.any_chain_kernel = saved["any"]
+
+
 def frame_waves(scene, camera, bounces, dev):
     """The (o, d, tmin, tmax) of every closest and shadow query of one real
     trace_paths frame ("auto" routing) on the scene the engines sweep (the
-    opaque sub-scene of a cutout scene), and of the first query of each
-    cutout chain on the cutout sub-scene: (closest, shadow, chains)."""
+    opaque sub-scene of a cutout scene), and the inputs and re-traced
+    layers of each cutout chain kernel call on the cutout sub-scene:
+    (closest, shadow, chains)."""
     import torch
     from optixpathtracer_tpu_torch.camera.camera import generate_rays
     from optixpathtracer_tpu_torch.core import rng
-    from optixpathtracer_tpu_torch.integrate import path
+    from optixpathtracer_tpu_torch.integrate import cutout, path
     from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
     o, d = generate_rays(*camera.raygen_params(WIDTH, HEIGHT, dev), WIDTH,
                          HEIGHT)
@@ -381,22 +425,16 @@ def frame_waves(scene, camera, bounces, dev):
     ys, xs = torch.meshgrid(torch.arange(HEIGHT, device=dev),
                             torch.arange(WIDTH, device=dev), indexing="ij")
     seed = rng.pixel_seed(WIDTH, xs.reshape(-1), ys.reshape(-1), 0)
-    with torch.no_grad(), recorded_queries(path) as calls:
+    with torch.no_grad(), recorded_queries(path, cutout) as calls, \
+            recorded_chains() as chains:
         path.trace_paths(scene, o, d, seed, bounces, "auto",
                          **scene_flags(scene))
     main = scene if scene.opaque_scene is None else scene.opaque_scene
     ours = [c for c in calls if c[1] is main]
     assert [c[0] for c in ours] == ["closest", "any"] * bounces
+    assert all(c[1] is main for c in calls)  # no chain ran plain
     closest = [dk._rays(*c[2:]) for c in ours if c[0] == "closest"]
     shadow = [dk._rays(*c[2:]) for c in ours if c[0] == "any"]
-    # each chain follows the main-scene query of its kind
-    chains, last = {"closest": [], "any": []}, None
-    for c in calls:
-        if c[1] is main:
-            last = c[0]
-        elif c[1] is scene.cutout_sub and last is not None:
-            chains[last].append(dk._rays(*c[2:]))
-            last = None
     assert len(chains["closest"]) == len(chains["any"]) == \
         (bounces if scene.cutout_sub is not None else 0)
     return closest, shadow, chains
@@ -441,8 +479,7 @@ def dense_bound(card, kind, tris, boxes, n_live, rays):
     return (*card.bound(needed_ops(work), n_bytes), work)
 
 
-def dense_phase(name, scene, closest, shadow, card, stats,
-                closest_labels=None):
+def dense_phase(name, scene, closest, shadow, card, stats):
     """The dense kernels on a frame's closest and shadow wavefronts:
     checks against the plain versions (occlusion also at the primary
     wavefront), times at every wavefront, and each kernel's numbers at the
@@ -454,8 +491,7 @@ def dense_phase(name, scene, closest, shadow, card, stats,
     r = closest[0][0].shape[0]
     sub = (subsample(r, closest[0][0].device)
            if r * tris.shape[1] > (1 << 32) else slice(None))
-    labels = closest_labels or (["primary"] + [f"bounce-{b}" for b in
-                                               range(1, len(closest))])
+    labels = ["primary"] + [f"bounce-{b}" for b in range(1, len(closest))]
     closest = list(zip(labels, closest))
     shadow = [(f"bounce-{b} shadow", w) for b, w in enumerate(shadow)]
     kinds = {"dense_closest": ("closest", dk.closest_kernel, dk.closest_plain,
@@ -463,8 +499,6 @@ def dense_phase(name, scene, closest, shadow, card, stats,
              "dense_any": ("any", dk.any_kernel, dk.any_plain, shadow,
                            [("primary", closest[0][1])] + shadow)}
     for kname, (kind, launch, plain, timed, checked) in kinds.items():
-        if not timed:
-            continue
         errs = []
         for i, (label, rays) in enumerate(checked):
             if i or kind == "any":
@@ -507,6 +541,110 @@ def dense_phase(name, scene, closest, shadow, card, stats,
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "tests": first["tests"],
             "bounce_bound_ms": [x["bound_ms"] for x in rows]}
+
+
+# ---------------------------------------------------------------------------
+# The alpha-cutout chain kernels
+# ---------------------------------------------------------------------------
+
+def chain_layers(kind, args):
+    """The (o, d, tmin, tmax) of every layer the plain chain sweeps on these
+    inputs (the closest queries it makes on the cutout sub-scene)."""
+    from optixpathtracer_tpu_torch.integrate import cutout
+    from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
+    plain = (cutout.closest_chain_plain if kind == "closest"
+             else cutout.any_chain_plain)
+    with recorded_queries(cutout) as calls:
+        plain(*args)
+    return [dk._rays(*c[2:]) for c in calls]
+
+
+def chain_bound(card, kind, args):
+    """(bound ms, bound_by, needed tests) of a chain: the operations of the
+    tests that the plain chain's layers need (`dense_kernels.needed_work`
+    of each, `needed_ops`), or the bytes (o, d, tmin, tmax in and the
+    answer out a lane, the gate for "any", the staged sub-scene)."""
+    from optixpathtracer_tpu_torch.integrate import cutout
+    from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
+    tris, boxes, n_live = dk.dense_arrays(args[0])
+    ops = tests = 0
+    for rays in chain_layers(kind, args):
+        work = dk.needed_work("closest", tris, boxes, n_live, *rays)
+        ops += needed_ops(work)
+        tests += int(work.tests.sum())
+    r = args[1].shape[0]
+    n_bytes = r * (32 + (8 if kind == "closest" else 2)) + n_live * 64 \
+        + boxes.numel() * 4
+    return (*card.bound(ops, n_bytes), tests)
+
+
+def chain_phase(name, chains, card, stats):
+    """The cutout chain kernels on every chain of a frame (the inputs and
+    re-traced layers `frame_waves` recorded): bit for bit the plain chain
+    (its layers the dense kernels' sweeps) and re-traced layers equal to
+    the plain count; each timed (CUDA events) beside the plain chain's
+    time and the bound; the kernel's row at the bounce-0 chain."""
+    from optixpathtracer_tpu_torch.integrate import cutout
+    kernels = {"closest": ("cutout_closest", cutout.closest_chain_kernel,
+                           cutout.closest_chain_plain),
+               "any": ("cutout_any", cutout.any_chain_kernel,
+                       cutout.any_chain_plain)}
+    per_frame = sum(n for calls in chains.values() for _, n in calls)
+    log(f"  {name} cutout chains: {per_frame} layers re-traced beyond the "
+        f"first in one frame (last_reentries of its "
+        f"{sum(len(c) for c in chains.values())} launches)")
+    for kind, calls in chains.items():
+        kname, launch, plain = kernels[kind]
+        rows = []
+        for b, (args, reentries) in enumerate(calls):
+            what = f"{name} {kname} bounce-{b}"
+            got = launch(*args)
+            want = plain(*args)
+            if kind == "closest":
+                same = torch_equal(got[0], want[0]) and \
+                    torch_equal(got[1], want[1])
+                hits = int((got[1] >= 0).sum())
+            else:
+                same = torch_equal(got, want)
+                hits = int(got.sum())
+            if not same:
+                raise AssertionError(f"{what}: the kernel differs from the "
+                                     f"plain chain")
+            count = cutout.chain_reentries(kind, *args)
+            if int(launch.last_reentries) != count or reentries != count:
+                raise AssertionError(
+                    f"{what}: {int(launch.last_reentries)} (in the frame "
+                    f"{reentries}) layers re-traced, the plain chain "
+                    f"{count}")
+            ms = cuda_time_ms(lambda a=args: launch(*a), 20 if b == 0 else 10)
+            plain_ms = cuda_time_ms(lambda a=args: plain(*a), 3)
+            bound_ms, bound_by, tests = chain_bound(card, kind, args)
+            live = int((args[4] > args[3]).sum()) if kind == "closest" \
+                else int(((args[4] > args[3]) & args[5]).sum())
+            rows.append({"ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "tests": tests, "reentries": count})
+            log(f"  {what}: kernel {ms:.3f} ms, plain chain {plain_ms:.2f} "
+                f"ms, bound {bound_ms:.4f} ms ({bound_by}; {tests} needed "
+                f"tests), reach {bound_ms / ms:.1%}; {live} of "
+                f"{args[1].shape[0]} lanes live, {hits} "
+                f"{'hits' if kind == 'closest' else 'blocked'}, {count} "
+                f"layers re-traced; bit for bit the plain chain")
+        first = rows[0]
+        stats[(name, kname)] = {
+            "max_abs_err": 0.0, "ms": first["ms"],
+            "plain_ms": first["plain_ms"],
+            "bounce_ms": [x["ms"] for x in rows],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "tests": first["tests"],
+            "bounce_bound_ms": [x["bound_ms"] for x in rows],
+            "bounce_plain_ms": [x["plain_ms"] for x in rows],
+            "reentries": [x["reentries"] for x in rows]}
+
+
+def torch_equal(a, b):
+    import torch
+    return bool(torch.equal(a, b))
 
 
 # ---------------------------------------------------------------------------
@@ -1630,7 +1768,8 @@ def backward_phase(scenes, dev, card, stats):
     small = flatten_model(model, lights, device=dev)
     pos, iv, ip = camera.raygen_params(48, 48, dev)
     params = {f: getattr(small, f) for f in GRAD_FIELDS}
-    for method, kernels in (("auto", WALK + ("dense_closest",)),
+    for method, kernels in (("auto", WALK + ("cutout_closest",
+                                              "cutout_any")),
                             ("packet", ("walk_candidates", "packet_closest",
                                         "packet_any"))):
         def loss_fn(p, method=method):
@@ -2117,6 +2256,13 @@ KERNEL_SOURCES = {
                        "optixpathtracer_tpu/intersect/packet_kernels.py:182"),
     "packet_any": ("packet_intersect.cu",
                    "optixpathtracer_tpu/intersect/packet_kernels.py:290"),
+    # the chains were Python loops around _closest_kernel
+    "cutout_closest": ("dense_intersect.cu",
+                       "optixpathtracer_tpu/integrate/cutout.py:63 "
+                       "intersect_closest_cutout (split path)"),
+    "cutout_any": ("dense_intersect.cu",
+                   "optixpathtracer_tpu/integrate/cutout.py:196 "
+                   "intersect_any_cutout (split path)"),
     "layered_f": ("layered_bsdf.cu", None),  # no TPU kernel: plain jnp
     "lobes_f": ("layered_bsdf.cu", None),
     "lobes_sample": ("layered_bsdf.cu", None),
@@ -2184,13 +2330,7 @@ def main():
             walk_phase(name, main_scene, waves, card, stats,
                        primary_sub=SUBSAMPLE)
             packet_phase(name, main_scene, waves, card, stats)
-            # every chain query is a closest hit on the cutout sub-scene;
-            # the radiance chains' first wavefront is the row's
-            dense_phase(name, scene.cutout_sub,
-                        chains["closest"] + chains["any"], [], card, stats,
-                        [f"{kind} chain bounce-{b}"
-                         for kind in ("radiance", "shadow")
-                         for b in range(bounces)])
+            chain_phase(name, chains, card, stats)
     log("path phase")
     for name, spp, bounces in CELLS:
         scene, camera, _, _ = scenes[name]

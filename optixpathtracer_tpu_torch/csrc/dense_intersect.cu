@@ -17,10 +17,11 @@
 //     chunks carry the point box at 3.4e38, which no slab test passes.
 //
 // The dense route serves scenes of fewer than 8 chunks of 128 triangles
-// (Cornell: 34 triangles in one chunk; hall's cutout sub-scene: 40), so
-// most slots of a chunk are padding; on shadow wavefronts half the rays
-// are dead (tmax = -1), and on hall's cutout chains two thirds of the live
-// rays miss the foliage's box. What bounds the kernels is FP32 issue (a
+// (Cornell: 34 triangles in one chunk; hall's cutout sub-scene, 40, in the
+// plain cutout chain that checks the chain kernels below), so most slots
+// of a chunk are padding; on shadow wavefronts half the rays are dead
+// (tmax = -1), and on hall's cutout chains two thirds of the live rays
+// miss the foliage's box. What bounds the kernels is FP32 issue (a
 // test is ~54 separately rounded operations fed by three broadcast shared
 // loads), so the design spends issue slots only on tests some input needs:
 //   1. Only real triangles are swept: the launcher passes n_live (the last
@@ -187,10 +188,15 @@ __device__ __forceinline__ bool union_box(const float* box, int n,
   return any;
 }
 
-// _mt_scalar_tri for one (ray, staged triangle) pair, same operation
-// order. Returns hit (tmin < t < limit inside the triangle) and t.
-__device__ __forceinline__ bool mt(const Ray& r, const Tile& s, int k,
-                                   float limit, float* t_out) {
+// Moller-Trumbore's terms for one (ray, staged triangle) pair, in
+// _mt_scalar_tri's operation order, which is also `api._refine`'s.
+struct MtTerms {
+  bool ok;  // |det| > 1e-12
+  float u, v, t;
+};
+
+__device__ __forceinline__ MtTerms mt_terms(const Ray& r, const Tile& s,
+                                            int k) {
   const float4 a = s.a[k];
   const float4 b = s.b[k];
   const float v0x = a.x, v0y = a.y, v0z = a.z;
@@ -201,20 +207,29 @@ __device__ __forceinline__ bool mt(const Ray& r, const Tile& s, int k,
   const float pvy = r.dz * e2x - r.dx * e2z;
   const float pvz = r.dx * e2y - r.dy * e2x;
   const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-  const bool ok = fabsf(det) > kEpsDet;
-  const float inv_det = ok ? 1.0f / det : 0.0f;
+  MtTerms m;
+  m.ok = fabsf(det) > kEpsDet;
+  const float inv_det = m.ok ? 1.0f / det : 0.0f;
   const float tvx = r.ox - v0x;
   const float tvy = r.oy - v0y;
   const float tvz = r.oz - v0z;
-  const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+  m.u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
   const float qvx = tvy * e1z - tvz * e1y;
   const float qvy = tvz * e1x - tvx * e1z;
   const float qvz = tvx * e1y - tvy * e1x;
-  const float v = (r.dx * qvx + r.dy * qvy + r.dz * qvz) * inv_det;
-  const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
-  *t_out = t;
-  return ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > r.tmin &&
-         t < limit;
+  m.v = (r.dx * qvx + r.dy * qvy + r.dz * qvz) * inv_det;
+  m.t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
+  return m;
+}
+
+// _mt_scalar_tri for one (ray, staged triangle) pair. Returns hit (tmin <
+// t < limit inside the triangle) and t.
+__device__ __forceinline__ bool mt(const Ray& r, const Tile& s, int k,
+                                   float limit, float* t_out) {
+  const MtTerms m = mt_terms(r, s, k);
+  *t_out = m.t;
+  return m.ok && m.u >= 0.0f && m.v >= 0.0f && m.u + m.v <= 1.0f &&
+         m.t > r.tmin && m.t < limit;
 }
 
 // What a CTA keeps about its pool of rays across tiles.
@@ -392,6 +407,248 @@ dense_any_kernel(const float* __restrict__ o, const float* __restrict__ d,
                out_blocked, swept, tests, t_alloc);
 }
 
+// ---------------------------------------------------------------------------
+// The alpha-cutout chains: one kernel a query, one thread a lane.
+//
+// Replaces the plain chain of integrate/cutout.py (closest_chain_plain,
+// any_chain_plain), which was the reference's Python loop around
+// _closest_kernel (optixpathtracer_tpu/integrate/cutout.py, split path):
+// up to MAX_CUTOUT_LAYERS + 1 rounds over every lane of the wavefront,
+// each a dense closest sweep, `_refine`, the alpha lookup, selects, and a
+// host test "any lane still open?" that drains the stream. Here each
+// thread runs its own lane's chain to its end:
+//   1. sweep the staged cutout sub-scene in (cur_tmin, bound): chunks in
+//      id order behind their slab test bounded by min(best t, bound),
+//      strict `<` (the dense closest kernel's arithmetic and tie rule);
+//   2. the hit record (a padding or invalid id is a miss) and _refine's
+//      t, u, v and ok at the chosen triangle, in its operation order;
+//   3. the albedo alpha as _hit_alpha computes it: the uv lerp, the
+//      bilinear sample (wrap, floor, texel lerps in sample_bilinear's
+//      order), the sRGB decode (divisions correctly rounded, the power in
+//      float64 and rounded once, as core.math.pow), 1 without a texture;
+//   4. alpha >= 0.9 ends the chain; a hole re-enters at t + 1e-4.
+// Closest: after MAX_CUTOUT_LAYERS + 1 holes the deepest hole is the hit
+// (the exhaustion rule); any: a chain still open occludes. Lanes that are
+// dead or end on their first layer leave after one sweep, so the work is
+// one dense sweep plus the few re-traced layers, with no host test and no
+// wavefront-wide pass a layer.
+// Bound: the first layer's needed tests (`dense_kernels.needed_work`) at
+// ~54 FP32 operations each, or the bytes (32 in and 8 or 1 out a lane),
+// the larger; on the hall's 40-triangle sub-scene both are tens of us.
+// Design: a CTA stages the whole sub-scene once (the routing admits only
+// sub-scenes of fewer than 8 chunks, so a tile holds it): the planes and
+// chunk boxes as the sweeps stage them, and each triangle's uvs and
+// albedo texture id (-2 for an invalid triangle). Texels are read from
+// global memory (L2-resident: a few lanes per warp need them). The layers
+// re-traced beyond the first are summed per CTA and added to `reentries`
+// with one atomicAdd.
+// ---------------------------------------------------------------------------
+
+constexpr int kChainThreads = 256;
+constexpr int kMaxCutoutLayers = 4;     // cutout.MAX_CUTOUT_LAYERS
+constexpr float kAlphaThreshold = 0.9f;  // cutout.ALPHA_THRESHOLD
+constexpr float kReentryEps = 1e-4f;     // cutout.REENTRY_EPS
+constexpr int kInvalidTri = -2;          // meta of an invalid triangle
+
+// The staged sub-scene: the sweeps' tile, then each triangle's three uvs
+// and its albedo texture id.
+struct ChainStage {
+  Tile tile;
+  float* uv;   // [t_alloc][6]
+  int* meta;   // [t_alloc]: texture id, -1 none, kInvalidTri invalid
+};
+
+__device__ __forceinline__ ChainStage chain_stage_of(float4* smem,
+                                                     int t_alloc) {
+  ChainStage s;
+  s.tile = tile_of(smem, t_alloc);
+  s.uv = s.tile.box + 6 * kTileChunks;
+  s.meta = reinterpret_cast<int*>(s.uv + 6 * t_alloc);
+  return s;
+}
+
+// One layer's hit record after _refine: hit, t (tmax on a miss), u, v and
+// the triangle.
+struct Layer {
+  bool hit;
+  float t, u, v;
+  int id;
+};
+
+__device__ __forceinline__ Layer chain_layer(const Ray& r,
+                                             const ChainStage& s,
+                                             int live_chunks, int n_live) {
+  float bt = kBig;
+  int bi = -1;
+  if (r.tmax > r.tmin) {
+    for (int c = 0; c < live_chunks; ++c) {
+      if (!slab(r, s.tile.box + c, kTileChunks, fminf(bt, r.tmax))) continue;
+      const int ke = min((c + 1) * kChunk, n_live);
+      for (int k = c * kChunk; k < ke; ++k) {
+        float t;
+        if (mt(r, s.tile, k, fminf(bt, r.tmax), &t) && t < bt) {
+          bt = t;
+          bi = k;
+        }
+      }
+    }
+  }
+  Layer h;
+  h.hit = false;
+  h.t = r.tmax;
+  h.u = h.v = 0.0f;
+  h.id = bi;
+  if (bi >= 0 && s.meta[bi] != kInvalidTri) {
+    const MtTerms m = mt_terms(r, s.tile, bi);
+    if (m.ok) {
+      h.hit = true;
+      h.t = m.t;
+      h.u = m.u;
+      h.v = m.v;
+    }
+  }
+  return h;
+}
+
+// sample_bilinear's texel index: floor-mod, as torch.remainder on int64.
+__device__ __forceinline__ long long wrap_texel(float i, int res) {
+  const long long m = static_cast<long long>(i) % res;
+  return m < 0 ? m + res : m;
+}
+
+// _hit_alpha at a hit: the decoded albedo alpha, 1 without a texture.
+__device__ __forceinline__ float hit_alpha(const ChainStage& s,
+                                           const float* __restrict__ tex,
+                                           int n_tex, int res,
+                                           const Layer& h) {
+  const int tex_id = s.meta[h.id];
+  if (tex_id < 0) return 1.0f;
+  const float* uv = s.uv + 6 * h.id;
+  const float w = (1.0f - h.u) - h.v;
+  const float su = (w * uv[0] + h.u * uv[2]) + h.v * uv[4];
+  const float sv = (w * uv[1] + h.u * uv[3]) + h.v * uv[5];
+  const int tid = min(tex_id, n_tex - 1);
+  const float x = (su - floorf(su)) * static_cast<float>(res) - 0.5f;
+  const float y = (sv - floorf(sv)) * static_cast<float>(res) - 0.5f;
+  const float x0 = floorf(x), y0 = floorf(y);
+  const float fx = x - x0, fy = y - y0;
+  const long long xa = wrap_texel(x0, res), xb = wrap_texel(x0 + 1.0f, res);
+  const long long ya = wrap_texel(y0, res), yb = wrap_texel(y0 + 1.0f, res);
+  const float* plane = tex + static_cast<long long>(tid) * res * res * 4 + 3;
+  const float c00 = __ldg(plane + (ya * res + xa) * 4);
+  const float c10 = __ldg(plane + (ya * res + xb) * 4);
+  const float c01 = __ldg(plane + (yb * res + xa) * 4);
+  const float c11 = __ldg(plane + (yb * res + xb) * 4);
+  const float top = c00 * (1.0f - fx) + c10 * fx;
+  const float bot = c01 * (1.0f - fx) + c11 * fx;
+  const float c = top * (1.0f - fy) + bot * fy;
+  if (c <= 0.04045f) return c / 12.92f;
+  return static_cast<float>(pow(static_cast<double>((c + 0.055f) / 1.055f),
+                                2.4));
+}
+
+// Both chains: closest writes (best t, best id) after the exhaustion rule,
+// any the blocked flag of the lanes `gate` admits.
+template <bool kClosest>
+__device__ __forceinline__ void chain(
+    const float* __restrict__ o, const float* __restrict__ d,
+    const float* __restrict__ tmin, const float* __restrict__ tmax,
+    const unsigned char* __restrict__ gate, int n,
+    const float* __restrict__ tris, const float* __restrict__ boxes,
+    int n_chunks, int n_live, const float* __restrict__ uvs,
+    const int* __restrict__ meta, const float* __restrict__ tex, int n_tex,
+    int res, float* __restrict__ out_t, int* __restrict__ out_id,
+    unsigned char* __restrict__ out_blocked, int* __restrict__ reentries,
+    int t_alloc) {
+  extern __shared__ float4 smem[];
+  __shared__ int block_reentries;
+  const ChainStage s = chain_stage_of(smem, t_alloc);
+  const int live_chunks = (n_live + kChunk - 1) / kChunk;
+  if (threadIdx.x == 0) block_reentries = 0;
+  stage_tile(s.tile, tris, boxes, n_chunks * kChunk, n_chunks, 0, n_live, 0,
+             live_chunks);
+  for (int x = threadIdx.x; x < 6 * n_live; x += blockDim.x)
+    s.uv[x] = uvs[x];
+  for (int k = threadIdx.x; k < n_live; k += blockDim.x) s.meta[k] = meta[k];
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    Ray r = load_ray(o, d, tmin, tmax, n, i);
+    bool open = kClosest || gate[i] != 0;
+    bool blocked = false;
+    float best_t = __int_as_float(0x7f800000);  // +inf
+    int best_id = -1;
+    float last_t = best_t;
+    int last_id = -1;
+    int sweeps = 0;
+    for (int layer = 0; layer <= kMaxCutoutLayers && open; ++layer) {
+      ++sweeps;
+      const Layer h = chain_layer(r, s, live_chunks, n_live);
+      const bool solid =
+          h.hit && hit_alpha(s, tex, n_tex, res, h) >= kAlphaThreshold;
+      if (solid) {
+        best_t = h.t;
+        best_id = h.id;
+        blocked = true;
+      }
+      open = h.hit && !solid;
+      if (open) {
+        r.tmin = h.t + kReentryEps;
+        last_t = h.t;
+        last_id = h.id;
+      }
+    }
+    if (kClosest) {
+      if (open && last_id >= 0) {  // exhausted: the deepest hole occludes
+        best_t = last_t;
+        best_id = last_id;
+      }
+      out_t[i] = best_t;
+      out_id[i] = best_id;
+    } else {
+      out_blocked[i] = (blocked || open) ? 1 : 0;  // beyond the bound: occlude
+    }
+    if (sweeps > 1) atomicAdd(&block_reentries, sweeps - 1);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0 && block_reentries)
+    atomicAdd(reentries, block_reentries);
+}
+
+__global__ void __launch_bounds__(kChainThreads)
+cutout_closest_kernel(const float* __restrict__ o,
+                      const float* __restrict__ d,
+                      const float* __restrict__ tmin,
+                      const float* __restrict__ tmax, int n,
+                      const float* __restrict__ tris,
+                      const float* __restrict__ boxes, int n_chunks,
+                      int n_live, const float* __restrict__ uvs,
+                      const int* __restrict__ meta,
+                      const float* __restrict__ tex, int n_tex, int res,
+                      float* __restrict__ out_t, int* __restrict__ out_id,
+                      int* __restrict__ reentries, int t_alloc) {
+  chain<true>(o, d, tmin, tmax, nullptr, n, tris, boxes, n_chunks, n_live,
+              uvs, meta, tex, n_tex, res, out_t, out_id, nullptr, reentries,
+              t_alloc);
+}
+
+__global__ void __launch_bounds__(kChainThreads)
+cutout_any_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                  const float* __restrict__ tmin,
+                  const float* __restrict__ tmax,
+                  const unsigned char* __restrict__ gate, int n,
+                  const float* __restrict__ tris,
+                  const float* __restrict__ boxes, int n_chunks, int n_live,
+                  const float* __restrict__ uvs,
+                  const int* __restrict__ meta,
+                  const float* __restrict__ tex, int n_tex, int res,
+                  unsigned char* __restrict__ out_blocked,
+                  int* __restrict__ reentries, int t_alloc) {
+  chain<false>(o, d, tmin, tmax, gate, n, tris, boxes, n_chunks, n_live, uvs,
+               meta, tex, n_tex, res, nullptr, nullptr, out_blocked,
+               reentries, t_alloc);
+}
+
 // Triangles one tile stages, and the dynamic shared memory that takes.
 int staged_tris(int n_live) { return n_live < kTileTris ? n_live : kTileTris; }
 
@@ -413,6 +670,30 @@ int launch(int n_rays, int n_live, void* stream, Args... args) {
   const int t_alloc = staged_tris(n_live);
   kKernel<<<(n_rays + kPool - 1) / kPool, kThreads, smem_bytes(t_alloc),
             static_cast<cudaStream_t>(stream)>>>(args..., t_alloc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The chains' dynamic shared memory: the tile, then 6 uv floats and a
+// texture id a triangle.
+size_t chain_smem_bytes(int t_alloc) {
+  return smem_bytes(t_alloc) + static_cast<size_t>(t_alloc) * 7 * 4;
+}
+
+// Zero the counter, then launch one thread a lane over the staged
+// sub-scene (every live triangle in one tile, the tile's size last).
+template <auto kKernel, typename... Args>
+int launch_chain(int n_rays, int n_live, int* reentries, void* stream,
+                 Args... args) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_live > kTileTris) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaMemsetAsync(reentries, 0, sizeof(int), st);
+  if (err != cudaSuccess || n_rays == 0) return static_cast<int>(err);
+  static const cudaError_t raised = cudaFuncSetAttribute(
+      kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(chain_smem_bytes(kTileTris)));
+  if (raised != cudaSuccess) return static_cast<int>(raised);
+  kKernel<<<(n_rays + kChainThreads - 1) / kChainThreads, kChainThreads,
+            chain_smem_bytes(n_live), st>>>(args..., reentries, n_live);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -442,6 +723,37 @@ int dense_any(const float* o, const float* d, const float* tmin,
   return launch<dense_any_kernel>(n_rays, n_live, stream, o, d, tmin, tmax,
                                  n_rays, tris, boxes, n_chunks, n_live,
                                  out_blocked, swept, tests);
+}
+
+// The cutout chains over a staged sub-scene of n_live <= 1,024
+// triangles: o, d, tmin, tmax, tris, boxes and n_live as above; uvs [n_live
+// or more, 6] (tri_uvs), meta [n_live or more] int32 (the albedo texture
+// id, -1 none, -2 an invalid triangle); tex [n_tex, res, res, 4] float32;
+// gate [n] bool (the lanes the occlusion chain serves); reentries [1]
+// int32, zeroed here, then the layers the lanes re-traced beyond the
+// first. closest: out_t [n] float32 (+inf on a miss), out_id [n] int32 (-1);
+// any: out_blocked [n] bool.
+int cutout_closest(const float* o, const float* d, const float* tmin,
+                   const float* tmax, int n_rays, const float* tris,
+                   const float* boxes, int n_chunks, int n_live,
+                   const float* uvs, const int* meta, const float* tex,
+                   int n_tex, int res, float* out_t, int* out_id,
+                   int* reentries, void* stream) {
+  return launch_chain<cutout_closest_kernel>(
+      n_rays, n_live, reentries, stream, o, d, tmin, tmax, n_rays, tris,
+      boxes, n_chunks, n_live, uvs, meta, tex, n_tex, res, out_t, out_id);
+}
+
+int cutout_any(const float* o, const float* d, const float* tmin,
+               const float* tmax, const unsigned char* gate, int n_rays,
+               const float* tris, const float* boxes, int n_chunks,
+               int n_live, const float* uvs, const int* meta,
+               const float* tex, int n_tex, int res,
+               unsigned char* out_blocked, int* reentries, void* stream) {
+  return launch_chain<cutout_any_kernel>(
+      n_rays, n_live, reentries, stream, o, d, tmin, tmax, gate, n_rays,
+      tris, boxes, n_chunks, n_live, uvs, meta, tex, n_tex, res,
+      out_blocked);
 }
 
 }  // extern "C"

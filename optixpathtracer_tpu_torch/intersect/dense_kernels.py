@@ -296,6 +296,13 @@ _ARGTYPES = {
                       ctypes.c_int, _P, _P, _P, _P, _P],
     "dense_any": [_P, _P, _P, _P, ctypes.c_int, _P, _P, ctypes.c_int,
                   ctypes.c_int, _P, _P, _P, _P],
+    # the alpha-cutout chains (launched from integrate/cutout.py)
+    "cutout_closest": [_P, _P, _P, _P, ctypes.c_int, _P, _P, ctypes.c_int,
+                       ctypes.c_int, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                       _P, _P, _P, _P],
+    "cutout_any": [_P, _P, _P, _P, _P, ctypes.c_int, _P, _P, ctypes.c_int,
+                   ctypes.c_int, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P,
+                   _P, _P],
 }
 
 

@@ -29,10 +29,9 @@ with every number.
 With --dense, each PATH is a version of csrc/dense_intersect.cu with the
 same two C entry points (`dense_closest`, `dense_any`, n_live included),
 run on the four wavefronts of one 1080p Cornell frame (closest at the
-primary and bounce 1, occlusion at both shadow wavefronts) and on the
-first query of each of hall's cutout chains (closest hits on the
-40-triangle cutout sub-scene: the radiance and the shadow chains of
-bounces 0 and 1). Each version must return the current source's t, ids
+primary and bounce 1, occlusion at both shadow wavefronts), where the
+dense sweeps serve the main path (hall's cutout chains run as their own
+kernels). Each version must return the current source's t, ids
 or blocked flags bit for bit; it is timed as above and read against one
 bound for all versions, chip_smoke's needed-work bound (the FP32 operations of the
 tests `dense_kernels.needed_work` counts for these inputs, each up to
@@ -224,8 +223,7 @@ def time_in_turns(launch, label, *args):
 
 
 def dense_rows(card, launch, dev):
-    """The dense versions on Cornell's four wavefronts and hall's cutout
-    chains."""
+    """The dense versions on Cornell's four wavefronts."""
     from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
     from optixpathtracer_tpu_torch.scene import flatten_model
     from optixpathtracer_tpu_torch.scene.procedural import PRESETS
@@ -237,13 +235,6 @@ def dense_rows(card, launch, dev):
               for b, w in enumerate(closest)]
     waves += [("cornell", cornell, "any", f"bounce-{b} shadow", w)
               for b, w in enumerate(shadow)]
-    model, camera, lights = PRESETS["hall"]()
-    hall = flatten_model(model, lights, device=dev)
-    _, _, chains = cs.frame_waves(hall, camera, 2, dev)
-    for chain in ("closest", "any"):
-        waves += [("hall cutout", hall.cutout_sub, "closest",
-                   f"{'radiance' if chain == 'closest' else 'shadow'} chain "
-                   f"bounce-{b}", w) for b, w in enumerate(chains[chain])]
     results = []
     for scene_name, scene, kind, label, rays in waves:
         tris, boxes, n_live = dk.dense_arrays(scene)

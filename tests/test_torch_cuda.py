@@ -19,15 +19,18 @@ from optixpathtracer_tpu_torch.bsdf import kernels as bk
 from optixpathtracer_tpu_torch.camera import Camera
 from optixpathtracer_tpu_torch.camera.camera import generate_rays
 from optixpathtracer_tpu_torch.diff import param_gradients
-from optixpathtracer_tpu_torch.integrate import path
+from optixpathtracer_tpu_torch.integrate import cutout, path
 from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
 from optixpathtracer_tpu_torch.intersect import packet_kernels as pk
 from optixpathtracer_tpu_torch.intersect import walk_kernels as wk
+from optixpathtracer_tpu_torch.intersect.types import Hit
 from optixpathtracer_tpu_torch.scene import (Material, Model, PointLight,
                                              flatten_model)
 from optixpathtracer_tpu_torch.scene.procedural import (PRESETS, quad,
                                                         scene_material_test,
                                                         uv_sphere)
+
+from cutout_stack import LANES, TIE_LANE, stack_model, stack_rays
 
 pytestmark = pytest.mark.cuda
 
@@ -53,9 +56,20 @@ def plain_bsdf():
 
 
 @contextlib.contextmanager
+def plain_chains():
+    """Route the alpha-cutout chains to the plain chain on every device."""
+    saved = cutout.chain_kernel_route
+    cutout.chain_kernel_route = lambda *args: False
+    try:
+        yield
+    finally:
+        cutout.chain_kernel_route = saved
+
+
+@contextlib.contextmanager
 def plain_kernels():
-    """Route the CUDA path of the dense, walk and packet engines and of the
-    BSDF dispatch to the plain versions."""
+    """Route the CUDA path of the dense, walk and packet engines, of the
+    cutout chains and of the BSDF dispatch to the plain versions."""
     saved = (dk.closest_kernel, dk.any_kernel, wk.candidates_kernel,
              wk.closest_kernel, wk.any_kernel, pk.packet_closest_kernel,
              pk.packet_any_kernel)
@@ -73,7 +87,7 @@ def plain_kernels():
     pk.packet_any_kernel = functools.partial(pk.plain_launch,
                                              pk.packet_any_plain)
     try:
-        with plain_bsdf():
+        with plain_bsdf(), plain_chains():
             yield
     finally:
         (dk.closest_kernel, dk.any_kernel, wk.candidates_kernel,
@@ -1140,3 +1154,195 @@ def test_hall_frame_dispatch_kernels_equal_plain(cuda):
                                   f"bounce {i // 2} {kind}")
         want = path.render_chunk(scene, *params, w, h, accum, 0, 1, 2, **kw)
     assert img.mean() > 0.005 and torch.equal(img, want)
+
+
+# ---------------------------------------------------------------------------
+# The alpha-cutout chain kernels
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def hall(cuda):
+    """The 1080p hall (338,270 triangles; cutout sub-scene of 40) and the
+    raygen parameters and shading options of its frames."""
+    from optixpathtracer_tpu_torch.scene.flatten import (
+        scene_active_lobes, scene_flat_shading, scene_uses_textures)
+    model, camera, lights = PRESETS["hall"]()
+    scene = flatten_model(model, lights, device=cuda)
+    kw = dict(active_lobes=scene_active_lobes(scene),
+              use_textures=scene_uses_textures(scene),
+              use_alpha_cutout=cutout.scene_uses_alpha_cutout(scene),
+              flat_shading=scene_flat_shading(scene))
+    return scene, camera.raygen_params(1920, 1080, cuda), kw
+
+
+def _chain_launches():
+    return (cutout.closest_chain_kernel.launches
+            + cutout.any_chain_kernel.launches)
+
+
+@contextlib.contextmanager
+def recorded_chains():
+    """Record (kind, args, outputs, reentries) of every chain kernel call.
+    A wrapper counts on the module's name for it, so the recorder carries
+    the counters while it stands in and hands them back."""
+    calls, saved = [], (cutout.closest_chain_kernel, cutout.any_chain_kernel)
+
+    def recorded(kind, fn):
+        def run(*args):
+            out = fn(*args)
+            calls.append((kind, args, out, int(run.last_reentries)))
+            return out
+        run.launches, run.last_reentries = fn.launches, fn.last_reentries
+        return run
+
+    stand_ins = (recorded("closest", saved[0]), recorded("any", saved[1]))
+    cutout.closest_chain_kernel, cutout.any_chain_kernel = stand_ins
+    try:
+        yield calls
+    finally:
+        for fn, run in zip(saved, stand_ins):
+            fn.launches, fn.last_reentries = run.launches, run.last_reentries
+        cutout.closest_chain_kernel, cutout.any_chain_kernel = saved
+
+
+def _assert_chain_equal(kind, args, out, reentries, what):
+    """One chain kernel call against the plain chain on the same inputs
+    (its dense sweeps the dense kernels): bit for bit, and its re-traced
+    layers equal to the plain count."""
+    sub, o, d, tmin, tmax = args[:5]
+    if kind == "closest":
+        want = cutout.closest_chain_plain(sub, o, d, tmin, tmax)
+        assert torch.equal(out[1], want[1]), what
+        assert torch.equal(out[0], want[0]), what
+    else:
+        want = cutout.any_chain_plain(sub, o, d, tmin, tmax, args[5])
+        assert torch.equal(out, want), what
+    assert reentries == cutout.chain_reentries(kind, *args), what
+
+
+def test_cutout_chain_kernels_equal_plain_on_hall_wavefronts(hall):
+    """Every chain of a 1080p hall frame (2 bounces: the radiance and the
+    shadow chain a bounce, dead and gated-out lanes included) through the
+    kernels equals the plain chain bit for bit, re-entries included; the
+    kernels launch 4 times a frame and the plain chain never runs."""
+    scene, params, kw = hall
+    assert cutout._uses_chain_kernel(scene.cutout_sub, params[0], "auto")
+    accum = torch.zeros(1080, 1920, 3, device=params[0].device)
+    before = (_chain_launches(), dk.closest_kernel.launches)
+    with recorded_chains() as calls:
+        path.render_chunk(scene, *params, 1920, 1080, accum, 0, 1, 2, **kw)
+    assert _chain_launches() - before[0] == 4
+    assert dk.closest_kernel.launches == before[1]
+    assert [c[0] for c in calls] == ["closest", "any"] * 2
+    dead = sum(int((c[1][4] <= c[1][3]).sum()) for c in calls)
+    assert dead > 0 and sum(c[3] for c in calls) > 0
+    for i, (kind, args, out, reentries) in enumerate(calls):
+        _assert_chain_equal(kind, args, out, reentries,
+                            f"bounce {i // 2} {kind}")
+
+
+def test_cutout_chain_kernels_exhaust_on_stacked_quads(cuda):
+    """Six aligned holes (lanes exhaust MAX_CUTOUT_LAYERS, lanes starting
+    past the first quads, a dead lane) and a coincident hole / leaf pair (a
+    t tie): the kernels equal the plain chain bit for bit, the hand
+    expectations hold, and each launch counts the hand count of re-traced
+    layers."""
+    model, lights = stack_model()
+    scene = flatten_model(model, lights, device=cuda)
+    sub = scene.cutout_sub
+    lanes = [lane for lane, *_ in LANES.values()] + [TIE_LANE]
+    o, d, tmin, tmax = stack_rays(lanes * 300, cuda)  # several blocks
+    gate = torch.ones_like(tmin, dtype=torch.bool)
+    gate[::5] = False
+    assert cutout._uses_chain_kernel(sub, o, "auto")
+    closest = cutout.closest_chain_kernel(sub, o, d, tmin, tmax)
+    _assert_chain_equal("closest", (sub, o, d, tmin, tmax), closest,
+                        int(cutout.closest_chain_kernel.last_reentries),
+                        "closest")
+    blocked = cutout.any_chain_kernel(sub, o, d, tmin, tmax, gate)
+    _assert_chain_equal("any", (sub, o, d, tmin, tmax, gate), blocked,
+                        int(cutout.any_chain_kernel.last_reentries), "any")
+    for j, (name, (_, t, b, _)) in enumerate(LANES.items()):
+        got = float(closest[0][j])
+        assert got == (float("inf") if t is None else
+                       pytest.approx(t, abs=1e-5)), name
+        open_copy = next(i for i in range(j, len(gate), len(lanes))
+                         if gate[i])
+        assert bool(blocked[open_copy]) == b, name
+    assert not blocked[gate.logical_not()].any()
+    # the whole queries over the split scene, kernels against plain
+    hit = cutout.intersect_closest_cutout(scene, o, d, tmin, tmax)
+    any_hit = cutout.intersect_any_cutout(scene, o, d, tmin, tmax)
+    with plain_chains():
+        want = cutout.intersect_closest_cutout(scene, o, d, tmin, tmax)
+        want_any = cutout.intersect_any_cutout(scene, o, d, tmin, tmax)
+    for k, a, b in zip(Hit._fields, hit, want):
+        assert torch.equal(a, b), k
+    assert torch.equal(any_hit, want_any)
+
+
+def test_cutout_chain_launch_errors_raise(cuda):
+    """Inputs the chain kernels do not take raise before any launch."""
+    model, lights = stack_model()
+    sub = flatten_model(model, lights, device=cuda).cutout_sub
+    o, d, tmin, tmax = stack_rays([TIE_LANE] * 4, cuda)
+    with pytest.raises(ValueError):
+        cutout.closest_chain_kernel(sub, o.cpu(), d, tmin, tmax)
+    with pytest.raises(ValueError):
+        cutout.any_chain_kernel(sub, o, d, tmin, tmax,
+                                torch.ones(3, dtype=torch.bool, device=cuda))
+
+
+def test_hall_frame_cutout_kernels_equal_plain_chain(hall):
+    """A whole 1080p hall frame through render_chunk with the chain
+    kernels equals the frame whose chains are plain, bit for bit."""
+    scene, params, kw = hall
+    accum = torch.zeros(1080, 1920, 3, device=params[0].device)
+    before = _chain_launches()
+    img = path.render_chunk(scene, *params, 1920, 1080, accum, 0, 1, 2, **kw)
+    assert _chain_launches() - before == 4
+    with plain_chains():
+        want = path.render_chunk(scene, *params, 1920, 1080, accum, 0, 1, 2,
+                                 **kw)
+    assert _chain_launches() - before == 4
+    assert img.mean() > 0.005 and torch.equal(img, want)
+
+
+def test_hall_small_gradients_cutout_kernels_equal_plain_chain(cuda):
+    """Material-table gradients of hall_small at 32x32, frames 0-1 (every
+    lobe, textures, the cutout chains through the kernels) equal those
+    with the plain chain bit for bit: the kernels only choose the
+    triangle, and the outer refine carries the gradient."""
+    import dataclasses
+    from optixpathtracer_tpu_torch.scene.flatten import (
+        scene_active_lobes, scene_flat_shading, scene_uses_textures)
+    model, camera, lights = PRESETS["hall_small"]()
+    scene = flatten_model(model, lights, device=cuda)
+    cam = camera.raygen_params(32, 32, cuda)
+    flags = dict(active_lobes=scene_active_lobes(scene),
+                 use_textures=scene_uses_textures(scene),
+                 use_alpha_cutout=cutout.scene_uses_alpha_cutout(scene),
+                 flat_shading=scene_flat_shading(scene))
+    assert flags["use_alpha_cutout"]
+    fields = ("mat_albedo", "mat_metallic", "mat_roughness", "mat_ior")
+
+    def grads():
+        params = {f: getattr(scene, f).detach().clone().requires_grad_(True)
+                  for f in fields}
+        s = dataclasses.replace(scene, **params)
+        loss = sum(path.render_sample(s, *cam, 32, 32, frame, 2, "auto",
+                                      **flags).mean() for frame in (0, 1))
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+        return {f: torch.zeros_like(p) if g is None else g
+                for (f, p), g in zip(params.items(), grads)}
+
+    before = _chain_launches()
+    got = grads()
+    assert _chain_launches() - before == 8
+    with plain_chains():
+        want = grads()
+    assert _chain_launches() - before == 8
+    for field, g in got.items():
+        assert torch.isfinite(g).all() and torch.equal(g, want[field]), field
+    assert got["mat_albedo"].abs().max() > 0

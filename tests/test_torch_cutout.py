@@ -36,6 +36,7 @@ from optixpathtracer_tpu_torch.scene import (Material, Model, PointLight,
 from optixpathtracer_tpu_torch.scene.flatten import SceneData
 from optixpathtracer_tpu_torch.scene.procedural import PRESETS, quad
 
+from cutout_stack import LANES, TIE_LANE, stack_model, stack_rays
 from test_torch_render import assert_images_match
 
 torch.set_num_threads(1)
@@ -290,15 +291,18 @@ def test_split_path_matches_legacy(cutout_scenes):
 
 @pytest.fixture(scope="module")
 def hall_small():
+    """The reference's hall_small scene and its leaves, and the port's
+    model, camera and lights."""
     jmodel, _, jlights = JPRESETS["hall_small"]()
     model, camera, lights = PRESETS["hall_small"]()
-    return jax_leaves(jflatten(jmodel, jlights)), (model, camera, lights)
+    jscene = jflatten(jmodel, jlights)
+    return jax_leaves(jscene), (model, camera, lights), jscene
 
 
 def test_flatten_hall_small_matches_reference(hall_small):
     """Every leaf of the outer scene and of both sub-scenes, tri_outer_id
     included, equal to the reference's flatten."""
-    want, (model, _, lights) = hall_small
+    want, (model, _, lights), _ = hall_small
     scene = flatten_model(model, lights, device="cpu")
     assert int(scene.tri_valid.sum()) == 20606
     assert int(scene.cutout_sub.tri_valid.sum()) == 40
@@ -313,7 +317,7 @@ def test_flatten_hall_small_matches_reference(hall_small):
 
 
 def test_scene_from_jax_carries_subscenes(hall_small):
-    want, _ = hall_small
+    want, _, _ = hall_small
     scene = scene_from_jax(want, device="cpu")
     assert_leaves_equal(scene, want)
     scene.cache["x"] = scene.opaque_scene.cache["x"] = 1
@@ -364,9 +368,153 @@ def test_hall_small_frame_matches_reference_op_by_op(hall_small):
         want = np.asarray(jrender(jflatten(jmodel, jlights), jcamera, 12, 12,
                                   spp=1, max_bounces=2,
                                   intersect_method="brute"))
-    _, (model, camera, lights) = hall_small
+    _, (model, camera, lights), _ = hall_small
     scene = flatten_model(model, lights, device="cpu")
     img = path.render(scene, camera, 12, 12, spp=1, max_bounces=2,
                       intersect_method="brute").numpy()
     assert img.mean() > 0.05
     assert_images_match(img, want)
+
+
+# ---------------------------------------------------------------------------
+# The cutout chains: routing, the plain chain, its count of re-traced layers
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("device_type,split,engine,n_chunks,want", [
+    ("cuda", True, "pallas", 1, True),     # the hall's 40-triangle leaves
+    ("cuda", True, "pallas", 7, True),     # the largest tile a CTA stages
+    ("cuda", True, "pallas", 8, False),    # WALK_MIN_CHUNKS: too large
+    ("cpu", True, "pallas", 1, False),     # CPU tensors: the plain chain
+    ("cuda", False, "pallas", 1, False),   # the unsplit full-scene chain
+    ("cuda", True, "walk", 1, False),      # explicit engines keep it too
+    ("cuda", True, "packet", 1, False),
+    ("cuda", True, "brute", 1, False),
+    ("cuda", True, "bvh", 1, False),
+])
+def test_chain_kernel_route(device_type, split, engine, n_chunks, want):
+    """The chain kernels serve exactly the CUDA chains over a split scene's
+    cutout sub-scene that the dense engine serves and one tile holds."""
+    assert cutout.chain_kernel_route(device_type, split, engine,
+                                     n_chunks) is want
+
+
+@pytest.fixture(scope="module")
+def stack():
+    model, lights = stack_model()
+    return flatten_model(model, lights, device="cpu")
+
+
+def _stack_lanes():
+    return [lane for lane, *_ in LANES.values()]
+
+
+def test_chain_kernel_refuses_cpu_tensors(stack):
+    """On the CPU the chains are plain; the kernel wrappers raise rather
+    than run elsewhere than on CUDA."""
+    o, d, tmin, tmax = stack_rays(_stack_lanes(), "cpu")
+    assert not cutout._uses_chain_kernel(stack.cutout_sub, o, "auto")
+    with pytest.raises(ValueError, match="CUDA"):
+        cutout.closest_chain_kernel(stack.cutout_sub, o, d, tmin, tmax)
+    with pytest.raises(ValueError, match="CUDA"):
+        cutout.any_chain_kernel(stack.cutout_sub, o, d, tmin, tmax,
+                                torch.ones_like(tmin, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("method", ["auto", "pallas"])
+def test_plain_chains_on_stacked_quads(stack, method):
+    """Six aligned holes: the radiance chain stops at its fifth hole (the
+    exhaustion rule), the shadow chain occludes beyond its layers; the
+    queries over the split scene add the opaque wall behind the stack."""
+    assert stack.opaque_scene is not None and stack.cutout_sub is not None
+    sub = stack.cutout_sub
+    o, d, tmin, tmax = stack_rays(_stack_lanes(), "cpu")
+    best_t, best_id = cutout.closest_chain_plain(sub, o, d, tmin, tmax,
+                                                 method)
+    blocked = cutout.any_chain_plain(sub, o, d, tmin, tmax,
+                                     torch.ones_like(tmin, dtype=torch.bool),
+                                     method)
+    want_t = [t for _, t, _, _ in LANES.values()]
+    for name, got, want in zip(LANES, best_t.tolist(), want_t):
+        assert got == (float("inf") if want is None else
+                       pytest.approx(want, abs=1e-5)), name
+    assert ((best_id >= 0) == torch.isfinite(best_t)).all()
+    assert blocked.tolist() == [b for _, _, b, _ in LANES.values()]
+    # the whole queries: the wall at t = 10 stops what the chain lets by
+    hit = cutout.intersect_closest_cutout(stack, o, d, tmin, tmax,
+                                          method=method)
+    wall = (tmin < 10.0) & (tmax > 10.0)
+    for name, t, h, w, (lane, want, _, _) in zip(
+            LANES, hit.t.tolist(), hit.hit.tolist(), wall.tolist(),
+            LANES.values()):
+        want = want if want is not None else 10.0 if w else None
+        assert h == (want is not None), name
+        if h:
+            assert t == pytest.approx(want, abs=1e-5), name
+    any_hit = cutout.intersect_any_cutout(stack, o, d, tmin, tmax,
+                                          method=method)
+    assert any_hit.tolist() == [b or w for b, w in
+                                zip(blocked.tolist(), wall.tolist())]
+
+
+def test_chain_reentries_hand_count(stack):
+    """The plain count of re-traced layers (what the kernels add to
+    `last_reentries`) equals the hand count, lane by lane and in all, for
+    both chains; a lane the gate leaves out re-traces nothing."""
+    sub = stack.cutout_sub
+    for lane, (_, _, _, want) in zip(_stack_lanes(), LANES.values()):
+        rays = stack_rays([lane], "cpu")
+        gate = torch.ones(1, dtype=torch.bool)
+        assert cutout.chain_reentries("closest", sub, *rays) == want, lane
+        assert cutout.chain_reentries("any", sub, *rays, gate) == want, lane
+        assert cutout.chain_reentries("any", sub, *rays, ~gate) == 0, lane
+    rays = stack_rays(_stack_lanes() + [TIE_LANE], "cpu")
+    total = sum(n for *_, n in LANES.values())
+    assert cutout.chain_reentries("closest", sub, *rays[:4]) in (
+        total, total + 1)  # the tie lane re-enters once if the hole wins
+
+
+def test_plain_chain_on_hall_small_matches_reference(hall_small):
+    """hall_small's cutout queries on rays aimed at its leaves (many pass
+    a hole, some several), from origins before and inside the foliage:
+    hits, ids and blocked flags equal to the reference's, t, u and v
+    within rtol 1e-6 (both refine the same ids the same way)."""
+    _, (model, _, lights), jscene = hall_small
+    scene = flatten_model(model, lights, device="cpu")
+    sub = scene.cutout_sub
+    rng = np.random.default_rng(4)
+    ok = sub.tri_valid.numpy()
+    v0, e1, e2 = (getattr(sub, k).numpy()[ok]
+                  for k in ("tri_v0", "tri_e1", "tri_e2"))
+    n = 384
+    k = rng.integers(0, len(v0), n)
+    a = rng.uniform(0.0, 1.0, (n, 2))
+    a = np.where(a.sum(axis=1, keepdims=True) > 1.0, 1.0 - a, a)
+    target = v0[k] + a[:, :1] * e1[k] + a[:, 1:] * e2[k]
+    o = (target + rng.normal(size=(n, 3)) * 2.0).astype(np.float32)
+    d = target - o
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    tmin = rng.choice([0.0, 0.0, 0.5], n).astype(np.float32)
+    tmax = rng.choice([100.0, 3.0], n).astype(np.float32)
+    got = cutout.intersect_closest_cutout(scene, _t(o), _t(d), _t(tmin),
+                                          _t(tmax), method="brute")
+    blocked = cutout.intersect_any_cutout(scene, _t(o), _t(d), _t(tmin),
+                                          _t(tmax), method="brute")
+    layers = torch.zeros(n, dtype=torch.int64)
+    cutout.closest_chain_plain(sub, _t(o), _t(d), _t(tmin), _t(tmax),
+                               "brute", layers)
+    assert (layers > 1).sum() > n // 10 and layers.max() > 2
+    with jax.disable_jit():
+        want = jcutout.intersect_closest_cutout(jscene, o, d, tmin, tmax,
+                                                method="brute")
+        want_blocked = jcutout.intersect_any_cutout(jscene, o, d, tmin, tmax,
+                                                    method="brute")
+    assert got.hit.any() and blocked.any() and not blocked.all()
+    for k_ in ("hit", "tri_id", "back_face"):
+        np.testing.assert_array_equal(getattr(got, k_).numpy(),
+                                      np.asarray(getattr(want, k_)),
+                                      err_msg=k_)
+    for k_ in ("t", "u", "v"):
+        np.testing.assert_allclose(getattr(got, k_).numpy(),
+                                   np.asarray(getattr(want, k_)), rtol=1e-6,
+                                   atol=1e-7, err_msg=k_)
+    np.testing.assert_array_equal(blocked.numpy(), np.asarray(want_blocked))
