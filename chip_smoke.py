@@ -19,7 +19,9 @@ cutout_closest or cutout_any).
 
 1. Kernel phase, on the wavefronts of a real trace_paths frame of each cell
    (the 1080p primary wavefront, then each bounce's closest and NEE shadow
-   rays). Dense kernels on Cornell and `diffuse`; the cutout chain
+   rays). Dense kernels on Cornell and `diffuse`, and on Cornell again at
+   3840x2160 (the wavefronts of the `cornell.render-2160p` cell, 8,294,400
+   rays, each checked whole against the plain sweep); the cutout chain
    kernels on hall's four chains (each bit for bit the plain chain, whose
    layers are dense sweeps, its re-traced layers equal to the plain
    count; kernel and plain chain timed, the bound from the needed tests of
@@ -167,6 +169,7 @@ WALK_SCENES = ("diffuse", "layered")
 IMAGE_SCENES = ("scene3_cornell", "diffuse", "layered", "conductor",
                 "dielectric", "hall")
 WIDTH, HEIGHT = 1920, 1080
+WIDE = (3840, 2160)      # Cornell's dense kernels at the 2160p cell too
 SMALL = 256              # kernels-vs-plain renders: SMALL x SMALL, 2 spp
 SUBSAMPLE = 1 << 18      # bounce rays compared against the plain versions
 KNIFE_EDGE_REL_T = 1e-5  # ids may differ only at ties this close ...
@@ -407,24 +410,24 @@ def recorded_chains():
         cutout.any_chain_kernel = saved["any"]
 
 
-def frame_waves(scene, camera, bounces, dev):
+def frame_waves(scene, camera, bounces, dev, width=WIDTH, height=HEIGHT):
     """The (o, d, tmin, tmax) of every closest and shadow query of one real
-    trace_paths frame ("auto" routing) on the scene the engines sweep (the
-    opaque sub-scene of a cutout scene), and the inputs and re-traced
-    layers of each cutout chain kernel call on the cutout sub-scene:
-    (closest, shadow, chains)."""
+    width x height trace_paths frame ("auto" routing) on the scene the
+    engines sweep (the opaque sub-scene of a cutout scene), and the inputs
+    and re-traced layers of each cutout chain kernel call on the cutout
+    sub-scene: (closest, shadow, chains)."""
     import torch
     from optixpathtracer_tpu_torch.camera.camera import generate_rays
     from optixpathtracer_tpu_torch.core import rng
     from optixpathtracer_tpu_torch.integrate import cutout, path
     from optixpathtracer_tpu_torch.intersect import dense_kernels as dk
-    o, d = generate_rays(*camera.raygen_params(WIDTH, HEIGHT, dev), WIDTH,
-                         HEIGHT)
+    o, d = generate_rays(*camera.raygen_params(width, height, dev), width,
+                         height)
     o = o.reshape(-1, 3).contiguous()
     d = d.reshape(-1, 3).contiguous()
-    ys, xs = torch.meshgrid(torch.arange(HEIGHT, device=dev),
-                            torch.arange(WIDTH, device=dev), indexing="ij")
-    seed = rng.pixel_seed(WIDTH, xs.reshape(-1), ys.reshape(-1), 0)
+    ys, xs = torch.meshgrid(torch.arange(height, device=dev),
+                            torch.arange(width, device=dev), indexing="ij")
+    seed = rng.pixel_seed(width, xs.reshape(-1), ys.reshape(-1), 0)
     with torch.no_grad(), recorded_queries(path, cutout) as calls, \
             recorded_chains() as chains:
         path.trace_paths(scene, o, d, seed, bounces, "auto",
@@ -2319,6 +2322,11 @@ def main():
         waves = (closest, shadow)
         if name in DENSE_SCENES:
             dense_phase(name, scene, closest, shadow, card, stats)
+        if name == "scene3_cornell":
+            wide = frame_waves(scene, camera, bounces, dev, *WIDE)[:2]
+            dense_phase(f"{name} {WIDE[0]}x{WIDE[1]}", scene, *wide, card,
+                        stats)
+            del wide
         if name in WALK_SCENES:
             walk_phase(name, scene, waves, card, stats,
                        dense_table=name == "diffuse")
@@ -2378,7 +2386,10 @@ def main():
                                   for k, v in path_launches.items()},
             })
     assert {k["name"].split(":")[0] for k in kernels} == set(KERNEL_SOURCES)
+    wide = f"scene3_cornell {WIDE[0]}x{WIDE[1]}"
     print(json.dumps({"dense_vs_walk": stats[("diffuse", "dense_vs_walk")],
+                      "dense_wide": {k: stats[(wide, k)]
+                                     for k in ("dense_closest", "dense_any")},
                       "block_compare": stats[("diffuse", "block_compare")],
                       "walk_vs_packet": stats[("hall", "walk_vs_packet")],
                       "options": opt, "backward": bwd,

@@ -404,7 +404,7 @@ def intersect_closest_raw(scene, o, d, tmin=0.0, tmax=100.0):
     tris, boxes, n_live = dense_arrays(scene)
     with spans.span(spans.ISECT_ORDER):
         rays = _rays(o, d, tmin, tmax)
-    with spans.span(spans.ISECT_KERNEL):
+    with spans.span(spans.ISECT_KERNEL), spans.span(spans.DENSE):
         if rays[0].is_cuda:
             return closest_kernel(tris, boxes, n_live, *rays)
         _require_cpu(rays[0])
@@ -438,7 +438,7 @@ def intersect_any(scene, o, d, tmin=0.0, tmax=100.0):
     tris, boxes, n_live = dense_arrays(scene)
     with spans.span(spans.ISECT_ORDER):
         rays = _rays(o, d, tmin, tmax)
-    with spans.span(spans.ISECT_KERNEL):
+    with spans.span(spans.ISECT_KERNEL), spans.span(spans.DENSE):
         if rays[0].is_cuda:
             return any_kernel(tris, boxes, n_live, *rays)
         _require_cpu(rays[0])

@@ -35,6 +35,8 @@ ISECT_KERNEL = "tracer.isect.kernel"  # a hand-written kernel (or plain)
 # a packet sweep, inside ISECT_KERNEL; its name lies outside
 # "tracer.isect.", whose spans other than ISECT_KERNEL read as glue
 PACKET = "tracer.packet"
+# a dense sweep, inside ISECT_KERNEL, and outside "tracer.isect." as PACKET
+DENSE = "tracer.dense"
 ISECT_CANDIDATES = "tracer.isect.candidates"  # candidate sort and count
 ISECT_UNSORT = "tracer.isect.unsort"  # back to lane order, hit record
 ISECT_REFINE = "tracer.isect.refine"  # differentiable re-intersection
@@ -47,8 +49,9 @@ BSDF_SAMPLE = "tracer.bsdf.sample"  # dispatch.sample: every active lobe
 ADVANCE = "tracer.advance"          # throughput and ray update
 
 NAMES = (FRAME, RAYGEN, BOUNCE, ISECT_CLOSEST, ISECT_ANY, ISECT_ORDER,
-         ISECT_KERNEL, PACKET, ISECT_CANDIDATES, ISECT_UNSORT, ISECT_REFINE,
-         CUTOUT, SHADE, SURFACE, NEE, BSDF_F, BSDF_SAMPLE, ADVANCE)
+         ISECT_KERNEL, PACKET, DENSE, ISECT_CANDIDATES, ISECT_UNSORT,
+         ISECT_REFINE, CUTOUT, SHADE, SURFACE, NEE, BSDF_F, BSDF_SAMPLE,
+         ADVANCE)
 
 _NULL = contextlib.nullcontext()
 _range = torch._C._profiler._RecordFunctionFast

@@ -2,8 +2,8 @@
 on the CPU: under torch.profiler every frame of `render_chunk` holds its
 bounces, and every bounce its intersection and shading spans; without a
 profiler no range is opened; the image does not depend on the profiler.
-The walk engine runs its plain versions here, inside the same spans as its
-kernels on the card."""
+The walk and dense engines run their plain versions here, inside the same
+spans as their kernels on the card."""
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -14,7 +14,8 @@ from optixpathtracer_tpu_torch.integrate.cutout import \
     scene_uses_alpha_cutout
 from optixpathtracer_tpu_torch.scene import flatten_model
 from optixpathtracer_tpu_torch.scene.flatten import scene_active_lobes
-from optixpathtracer_tpu_torch.scene.procedural import (scene_hall,
+from optixpathtracer_tpu_torch.scene.procedural import (scene_cornell,
+                                                         scene_hall,
                                                          scene_material_test)
 
 torch.set_num_threads(1)
@@ -176,3 +177,44 @@ def test_packet_span_inside_the_kernel_span():
     assert holders == {spans.ISECT_CLOSEST, spans.ISECT_ANY}
     assert any(_inside(p, c) for p in packets for c in ranges
                if c[0] == spans.CUTOUT)
+
+
+def _cornell_ranges(method):
+    """The `tracer.*` ranges of one 8x8 Cornell frame with every query on
+    the engine `method`, and its image."""
+    model, camera, lights = scene_cornell()
+    scene = flatten_model(model, lights, device="cpu")
+    cam = camera.raygen_params(8, 8, "cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        image = path.render_chunk(scene, *cam, 8, 8, torch.zeros((8, 8, 3)),
+                                  3, 1, 2, method,
+                                  active_lobes=scene_active_lobes(scene))
+    ranges = [(ev.name(), ev.start_ns(), ev.start_ns() + ev.duration_ns())
+              for ev in prof.profiler.kineto_results.events()
+              if ev.name().startswith("tracer.")]
+    return image, sorted(ranges, key=lambda r: r[1])
+
+
+@pytest.mark.parametrize("method", ["pallas", "walk"])
+def test_dense_span_inside_the_kernel_span(method):
+    """A Cornell frame on the dense engine ("pallas", which the card's
+    router picks for a scene of fewer than 8 walk chunks) opens
+    `tracer.dense` in every query's kernel span, once a closest and once a
+    shadow query a bounce; on the walk engine it opens none."""
+    image, ranges = _cornell_ranges(method)
+    assert image.abs().sum() > 0
+    assert {n for n, _, _ in ranges} <= set(spans.NAMES)
+    assert not spans.DENSE.startswith("tracer.isect.")
+    dense = [r for r in ranges if r[0] == spans.DENSE]
+    if method == "walk":
+        assert dense == []
+        return
+    kernels = [r for r in ranges if r[0] == spans.ISECT_KERNEL]
+    queries = [r for r in ranges
+               if r[0] in (spans.ISECT_CLOSEST, spans.ISECT_ANY)]
+    assert len(dense) == len(kernels) == len(queries) == 4
+    for k, q in zip(dense, queries):
+        assert sum(_inside(k, c) for c in kernels) == 1, k
+        assert _inside(k, q)
+    assert [q[0] for q in queries] == [spans.ISECT_CLOSEST,
+                                       spans.ISECT_ANY] * 2
